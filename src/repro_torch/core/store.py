@@ -1,0 +1,168 @@
+"""Packed page store: the contiguous array behind the Flash-Cosmos engine.
+
+:class:`PackedStore` packs every programmed page into one contiguous
+``(slots, planes * words_per_plane)`` buffer — the layout analogue of a
+multi-plane NAND die where a logical bit vector is striped across planes
+and every plane holds the same (block, wordline) grid.  An MWS command
+then becomes a *gather* of slot rows plus one kernel launch over the whole
+word axis (= all planes at once).
+
+Slot 0 is reserved for an all-ones row: the AND identity used to pad the
+ragged per-block wordline sets of an inter-block MWS to a rectangle.  Slot
+1 is the dual all-zeros row: a block whose first wordline gathers slot 1
+ANDs to zero and is therefore OR-neutral across blocks — plan-aware
+batching uses it to pad a plan with fewer target blocks into a wider
+signature's shape.
+
+Writes go to a host-side ``numpy`` buffer (amortized doubling); the device
+snapshot (an ``int32`` tensor on the caller's ``torch.device``) is
+materialized lazily and invalidated on write, so steady-state query
+serving gathers from one cached tensor.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core.bitops import to_words
+
+IDENTITY_SLOT = 0  # all-ones row (AND identity / pad row), always present
+ZERO_SLOT = 1  # all-zeros row (OR identity: pads whole blocks), always present
+
+_ONES = np.uint32(0xFFFFFFFF)
+_SCRATCH_PREFIX = "__scratch"
+
+
+def page_region(name: str) -> str | None:
+    """Epoch region of a page name, or ``None`` for planner scratch pages.
+
+    Equality bitmaps are ``column=value`` and BSI slices ``column#bit``, so
+    the prefix before the first ``=`` / ``#`` groups every page of one
+    column into one region; constant pages (``__all`` / ``__none``) are
+    their own single-page regions.  Plan caches invalidate per region.
+    """
+    if name.startswith(_SCRATCH_PREFIX):
+        return None
+    return name.split("=", 1)[0].split("#", 1)[0]
+
+
+@dataclass
+class PackedStore:
+    """Name-addressed packed page store striped over ``planes`` planes.
+
+    All pages share one word count ``W`` (fixed by the first write); each
+    page occupies one *slot* of ``planes * words_per_plane`` words, where
+    ``words_per_plane = ceil(W / planes)`` (tail padding is sliced off on
+    read).
+    """
+
+    planes: int = 1
+    _slots: dict[str, int] = field(default_factory=dict)
+    _buf: np.ndarray | None = None  # (capacity, planes * wpp) uint32
+    _n: int = 0
+    _words: int | None = None  # logical words per page (pre-padding)
+    _snapshot: torch.Tensor | None = None
+    _snapshot_device: torch.device | None = None
+    # Content version: bumped whenever page *content* changes, except
+    # planner scratch pages.  Snapshot-level caches key on this.
+    epoch: int = 0
+    # Region-granular mutation epochs (see :func:`page_region`): bumped on
+    # a full (re)program of a page in the region.  Plan caches key on the
+    # regions their leaves touch.
+    region_epochs: dict[str, int] = field(default_factory=dict)
+    # how many times the packed buffer was uploaded to the device: steady
+    # state serving must hold this flat (spilled values stay in latch
+    # scratch, never the store)
+    snapshot_uploads: int = 0
+
+    # -- geometry ----------------------------------------------------------
+    @property
+    def num_words(self) -> int | None:
+        """Logical words per page (None until the first write)."""
+        return self._words
+
+    @property
+    def padded_words(self) -> int:
+        assert self._words is not None
+        return -(-self._words // self.planes) * self.planes
+
+    @property
+    def words_per_plane(self) -> int:
+        return self.padded_words // self.planes
+
+    @property
+    def num_slots(self) -> int:
+        return self._n
+
+    def __len__(self) -> int:
+        return len(self._slots)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._slots
+
+    # -- writes ------------------------------------------------------------
+    def _ensure_buf(self, words: int) -> None:
+        if self._buf is not None:
+            return
+        self._words = words
+        wp = self.padded_words
+        self._buf = np.empty((16, wp), dtype=np.uint32)
+        self._buf[IDENTITY_SLOT] = _ONES  # AND identity row
+        self._buf[ZERO_SLOT] = 0  # OR identity row (block padding)
+        self._n = 2
+
+    def __setitem__(self, name: str, words) -> None:
+        if isinstance(words, torch.Tensor):
+            words = words.detach().cpu().numpy().view(np.uint32)
+        w = np.asarray(words, dtype=np.uint32).reshape(-1)
+        self._ensure_buf(w.shape[0])
+        if w.shape[0] != self._words:
+            raise ValueError(
+                f"page {name!r} has {w.shape[0]} words, store fixed at "
+                f"{self._words}"
+            )
+        slot = self._slots.get(name)
+        if slot is None:
+            if self._n == self._buf.shape[0]:
+                grown = np.empty(
+                    (2 * self._buf.shape[0], self._buf.shape[1]),
+                    dtype=np.uint32,
+                )
+                grown[: self._n] = self._buf[: self._n]
+                self._buf = grown
+            slot = self._n
+            self._n += 1
+            self._slots[name] = slot
+        self._buf[slot, : self._words] = w
+        self._buf[slot, self._words :] = 0
+        self._snapshot = None
+        region = page_region(name)
+        if region is not None:
+            self.epoch += 1
+            self.region_epochs[region] = self.region_epochs.get(region, 0) + 1
+
+    # -- reads -------------------------------------------------------------
+    def slot(self, name: str) -> int:
+        return self._slots[name]
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        slot = self._slots[name]
+        return to_words(self._buf[slot, : self._words])
+
+    def snapshot(self, device=None) -> torch.Tensor:
+        """Device-side ``(slots, planes * words_per_plane)`` int32 tensor.
+
+        Cached until the next write (or a request for another device); a
+        multi-plane gather + reduce over it covers every plane in one
+        kernel launch because planes are word-axis shards of each slot row.
+        """
+        device = torch.device("cpu" if device is None else device)
+        if self._snapshot is None or self._snapshot_device != device:
+            assert self._buf is not None, "empty store has no snapshot"
+            self._snapshot = to_words(self._buf[: self._n], device)
+            self._snapshot_device = device
+            self.snapshot_uploads += 1
+        return self._snapshot

@@ -1,0 +1,102 @@
+"""FlashQL on PyTorch: the batched bitmap-index query-serving subsystem.
+
+The port's mirror of ``repro.query`` (COUNT and MASK serving through
+:class:`BatchScheduler` on one device).  Sharded serving, mutations and
+the other aggregates are later slices (see ROADMAP.md).
+
+* :mod:`repro_torch.query.ast` — the predicate AST and aggregate specs;
+* :mod:`repro_torch.query.aggregate` — the aggregation pipeline (COUNT,
+  MASK);
+* :mod:`repro_torch.query.bitmap` — ``BitmapStore``: ingests columnar
+  tables into equality bitmaps and bit-sliced range indexes;
+* :mod:`repro_torch.query.compile` — lowering, the plan cache, and the
+  fused flush compiler;
+* :mod:`repro_torch.query.device` — ``FlashDevice``: batched execution on
+  the gather-reduce, threshold and popcount kernels;
+* :mod:`repro_torch.query.scheduler` — ``BatchScheduler``;
+* :mod:`repro_torch.query.state` — loading a reference deployment's state;
+* :mod:`repro_torch.query.telemetry` — the metrics registry and traces.
+"""
+
+from repro_torch.query.aggregate import (
+    Aggregator,
+    get_aggregator,
+    validate_query,
+)
+from repro_torch.query.ast import (
+    Agg,
+    And,
+    AtLeast,
+    Avg,
+    Count,
+    Eq,
+    GroupBy,
+    In,
+    Majority,
+    Mask,
+    Max,
+    Min,
+    Not,
+    Or,
+    Query,
+    Range,
+    Sum,
+    TopK,
+)
+from repro_torch.query.bitmap import VALID_PAGE, BitmapStore
+from repro_torch.query.compile import (
+    CompiledQuery,
+    FlushProgram,
+    QueryCompiler,
+    compile_flush,
+    lower,
+)
+from repro_torch.query.device import FlashDevice
+from repro_torch.query.scheduler import BatchScheduler, QueryResult
+from repro_torch.query.state import export_state, load_reference_state
+from repro_torch.query.telemetry import (
+    Histogram,
+    Telemetry,
+    percentile,
+    validate_trace,
+)
+
+__all__ = [
+    "Agg",
+    "Aggregator",
+    "And",
+    "AtLeast",
+    "Majority",
+    "Avg",
+    "Count",
+    "Eq",
+    "GroupBy",
+    "In",
+    "Mask",
+    "Max",
+    "Min",
+    "Not",
+    "Or",
+    "Query",
+    "Range",
+    "Sum",
+    "TopK",
+    "get_aggregator",
+    "validate_query",
+    "BitmapStore",
+    "VALID_PAGE",
+    "CompiledQuery",
+    "FlushProgram",
+    "QueryCompiler",
+    "compile_flush",
+    "lower",
+    "FlashDevice",
+    "BatchScheduler",
+    "QueryResult",
+    "export_state",
+    "load_reference_state",
+    "Histogram",
+    "Telemetry",
+    "percentile",
+    "validate_trace",
+]

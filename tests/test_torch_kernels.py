@@ -1,0 +1,223 @@
+"""The port's kernels (B1 mws, B2 popcount, B3 threshold) against the Pallas
+kernels they replace.
+
+On the CPU each wrapper runs its plain PyTorch version; these tests hold
+that plain version bit-exact against the reference Pallas kernel run in
+interpret mode (as ``tests/test_kernel_mws.py`` runs it), on small ragged
+shapes, every op and every k.  The cases marked ``cuda`` hold the CUDA
+kernel itself against its plain version and run only on the card.
+Tolerance: none — packed words compare bit for bit on the uint32 view.
+
+The reference (JAX) is imported only by the fixture that needs it, so the
+``cuda`` cases also run on a GPU machine without JAX:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.bitops import BitOp, to_uint32, to_words
+from repro_torch.kernels.mws import mws_gather, mws_gather_ref, mws_reduce, mws_reduce_ref
+from repro_torch.kernels.popcount import popcount, popcount_ref
+from repro_torch.kernels.threshold import threshold_reduce, threshold_ref
+
+OPS = list(BitOp)
+
+
+def _words(rng, *shape) -> np.ndarray:
+    return rng.integers(0, 2**32, shape, dtype=np.uint32)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference package's kernels (skips where JAX is missing)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.core.bitops import BitOp, reduce_words
+    from repro.kernels.mws import mws_reduce
+    from repro.kernels.popcount.popcount import popcount_pallas
+    from repro.kernels.threshold import bitslice_threshold, threshold_reduce
+
+    return SimpleNamespace(
+        jnp=jnp,
+        BitOp=BitOp,
+        reduce_words=reduce_words,
+        mws_reduce=mws_reduce,
+        popcount_pallas=popcount_pallas,
+        bitslice_threshold=bitslice_threshold,
+        threshold_reduce=threshold_reduce,
+    )
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run on the card")
+    return torch.device("cuda")
+
+
+# -- plain versions vs the Pallas kernels (interpret mode) --------------------
+
+
+@pytest.mark.parametrize("op", OPS, ids=lambda o: o.value)
+@pytest.mark.parametrize("n,w", [(1, 127), (3, 2049), (65, 33)])
+def test_mws_plain_matches_pallas(ref, op, n, w):
+    rng = np.random.default_rng(n * 1000 + w)
+    stack = _words(rng, n, w)
+    if n > 2:
+        stack[1] = 0xFFFFFFFF  # all-ones and all-zeros rows
+        stack[2] = 0
+    want = np.asarray(
+        ref.mws_reduce(ref.jnp.asarray(stack), ref.BitOp(op.value), interpret=True)
+    )
+    got = to_uint32(mws_reduce(to_words(stack), op))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(to_uint32(mws_reduce_ref(to_words(stack), op)), want)
+
+
+def test_mws_gather_plain_matches_reference_cube(ref):
+    """The gathering form equals the reference's gather-then-reduce: AND
+    within blocks, OR across, substituted spill and shared rows spliced
+    in (``query/device.py:plan_step_fn``), inverse read last."""
+    rng = np.random.default_rng(7)
+    src, ext, shr = _words(rng, 9, 70), _words(rng, 3, 2, 70), _words(rng, 2, 70)
+    idx = np.array(
+        [[[0, 3, -1], [5, -3, 8]], [[-2, 4, 4], [1, 2, -4]], [[7, -1, 6], [0, 0, 0]]],
+        dtype=np.int32,
+    )
+    m = ext.shape[1]
+    for inverse in (False, True):
+        for outer_or in (True, False):
+            want = []
+            for b in range(idx.shape[0]):
+                rows = [
+                    [
+                        src[r] if r >= 0 else (ext[b, -1 - r] if -1 - r < m else shr[-1 - r - m])
+                        for r in blk
+                    ]
+                    for blk in idx[b]
+                ]
+                per = np.stack(
+                    [np.asarray(ref.reduce_words(ref.jnp.asarray(np.stack(r)), ref.BitOp.AND))
+                     for r in rows]
+                )
+                if outer_or:
+                    out = np.asarray(ref.reduce_words(ref.jnp.asarray(per), ref.BitOp.OR))
+                else:
+                    out = per
+                want.append(~out if inverse else out)
+            got = mws_gather(
+                to_words(src), torch.from_numpy(idx), BitOp.AND,
+                outer_or=outer_or, invert=inverse,
+                ext=to_words(ext), shr=to_words(shr),
+            )
+            np.testing.assert_array_equal(to_uint32(got), np.stack(want))
+
+
+@pytest.mark.parametrize("r,w", [(1, 1), (5, 2049), (8, 4096), (3, 77)])
+def test_popcount_plain_matches_pallas(ref, r, w):
+    rng = np.random.default_rng(r + w)
+    words = _words(rng, r, w)
+    words[0, : w // 2] = 0xFFFFFFFF
+    rp, wp = -(-r // 8) * 8, -(-w // 2048) * 2048
+    padded = np.zeros((rp, wp), np.uint32)
+    padded[:r, :w] = words
+    want = np.asarray(ref.popcount_pallas(ref.jnp.asarray(padded), interpret=True))[:r]
+    np.testing.assert_array_equal(popcount(to_words(words)).numpy(), want)
+    np.testing.assert_array_equal(popcount_ref(to_words(words)).numpy(), want)
+    assert int(popcount(to_words(words[0]))) == int(want[0])  # (W,) -> ()
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_threshold_plain_matches_pallas_all_k(ref, k):
+    """Every k of an 8-row threshold against the Pallas kernel."""
+    rng = np.random.default_rng(k)
+    x = _words(rng, 8, 2049)
+    x[3] = 0xFFFFFFFF
+    want = np.asarray(ref.threshold_reduce(ref.jnp.asarray(x), k, interpret=True))
+    np.testing.assert_array_equal(to_uint32(threshold_reduce(to_words(x), k)), want)
+    np.testing.assert_array_equal(
+        to_uint32(threshold_reduce(to_words(x), k, invert=True)), ~want
+    )
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_threshold_plain_matches_reference_every_k(ref, n):
+    """Every 1 <= k <= n against the reference's shared counter, batched."""
+    rng = np.random.default_rng(100 + n)
+    x = _words(rng, 3, n, 45)
+    for k in range(1, n + 1):
+        want = np.stack(
+            [np.asarray(ref.bitslice_threshold(ref.jnp.asarray(x[b]), k, n))[0]
+             for b in range(3)]
+        )
+        np.testing.assert_array_equal(to_uint32(threshold_ref(to_words(x), k)), want)
+        np.testing.assert_array_equal(to_uint32(threshold_reduce(to_words(x), k)), want)
+
+
+def test_wrappers_reject_bad_arguments():
+    x = torch.zeros((9, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        threshold_reduce(x, 2)  # more than 8 rows
+    with pytest.raises(ValueError):
+        threshold_reduce(x[:3], 4)  # k > n
+    with pytest.raises(ValueError):
+        mws_gather(x, torch.zeros((1, 1, 1), dtype=torch.int32), BitOp.NAND)
+    with pytest.raises(ValueError):
+        mws_reduce(x[:0], BitOp.AND)
+
+
+# -- the CUDA kernels against their plain versions (on the card only) ---------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", [(1, 1), (3, 127), (64, 2049), (65, 4096), (130, 33)])
+def test_mws_kernel_matches_plain(cuda, n, w):
+    x = torch.randint(-(2**31), 2**31, (n, w), dtype=torch.int32, device=cuda)
+    for op in OPS:
+        assert torch.equal(mws_reduce(x, op), mws_reduce_ref(x, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 127, 4096])
+def test_mws_gather_kernel_matches_plain(cuda, w):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(w)
+
+    def words(*shape):
+        return torch.randint(-(2**31), 2**31, shape, generator=g, dtype=torch.int32, device=cuda)
+
+    src, ext, shr = words(9, w), words(3, 2, w), words(2, w)
+    idx = torch.tensor(
+        [[[0, 3, -1], [5, -3, 8]], [[-2, 4, 4], [1, 2, -4]], [[7, -1, 6], [0, 0, 0]]],
+        dtype=torch.int32, device=cuda,
+    )
+    for op in (BitOp.AND, BitOp.OR, BitOp.XOR):
+        for outer_or in (True, False):
+            kw = dict(outer_or=outer_or, invert=True, ext=ext, shr=shr)
+            assert torch.equal(mws_gather(src, idx, op, **kw), mws_gather_ref(src, idx, op, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,w", [(1, 1), (5, 2049), (67, 4096)])
+def test_popcount_kernel_matches_plain(cuda, r, w):
+    x = torch.randint(-(2**31), 2**31, (r, w), dtype=torch.int32, device=cuda)
+    x[0] = -1
+    assert torch.equal(popcount(x), popcount_ref(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 127, 2049])
+def test_threshold_kernel_matches_plain(cuda, w):
+    for n in range(1, 9):
+        x = torch.randint(-(2**31), 2**31, (2, n, w), dtype=torch.int32, device=cuda)
+        for k in range(1, n + 1):
+            for inv in (False, True):
+                assert torch.equal(
+                    threshold_reduce(x, k, invert=inv), threshold_ref(x, k, invert=inv)
+                )
