@@ -34,15 +34,11 @@ SEED = 0
 TIMED_FLUSHES = 20
 KERNEL_REPS = 20
 
-# HBM rate by card (NVIDIA data sheets); the first matching name wins
-_HBM_BYTES_PER_S = (
-    ("H100 PCIe", 2.0e12),
-    ("H100 NVL", 3.9e12),
-    ("H200", 4.8e12),
-    ("H100", 3.35e12),
-)
-# 32-bit integer/logic ops run on the CUDA cores, not the tensor cores;
-# taken at the card's non-tensor 32-bit peak (67 TFLOP/s fp32, H100 SXM)
+# the bounds are for the H100 SXM (NVIDIA data sheet): its HBM3 rate, and
+# its non-tensor 32-bit peak (67 TFLOP/s fp32) for the integer/logic ops,
+# which run on the CUDA cores, not the tensor cores
+CARD = "H100 80GB HBM3"
+_HBM_BYTES_PER_S = 3.35e12
 _OPS_PER_S = 67e12
 
 REPLACES = {
@@ -181,10 +177,9 @@ def time_ms(fn, reps: int) -> float:
 
 
 def hbm_rate(name: str) -> float:
-    for key, rate in _HBM_BYTES_PER_S:
-        if key in name:
-            return rate
-    raise ValueError(f"no memory rate known for {name!r}")
+    if CARD not in name:
+        raise ValueError(f"bounds are known for the {CARD} only, not {name!r}")
+    return _HBM_BYTES_PER_S
 
 
 # -- phase 2: every kernel against its plain version --------------------------
@@ -371,17 +366,18 @@ def main_path(device, rows: int, log=log) -> dict:
                 lat.append(time.perf_counter() - t2)
                 check_results(queries, results, oracle)
             p50 = statistics.median(lat)
+            qps = len(queries) * TIMED_FLUSHES / sum(lat)
             out[name] = {
                 "first_flush_s": first_s,
                 "warm_flush_p50_s": p50,
-                "qps": len(queries) / p50,
+                "qps": qps,
                 "launches_first_flush": launches,
                 "stats": {k: st[k] for k in _COUNTERS},
             }
             log(
                 f"main path [{name}]: {len(queries)} queries/flush, first flush "
                 f"{first_s:.4f} s, warm flush p50 {p50 * 1e3:.3f} ms "
-                f"({len(queries) / p50:.1f} q/s), launches per flush {launches}"
+                f"({qps:.1f} q/s over {TIMED_FLUSHES} flushes), launches per flush {launches}"
             )
             if torch.device(device).type == "cuda":
                 out[name]["profile"] = profile_flush(sched, queries)
@@ -497,9 +493,11 @@ def kernel_report(recorded: dict, launches: dict, card: str) -> list[dict]:
                 # reduction over an axis, no popcount in this build's API)
                 "library_ms": None,
                 "shape": shape,
-                "kernel_bytes": bytes_kernel,
-                "bound_bytes": bytes_min,
             }
+        )
+        log(
+            f"kernel {name}: indexes {bytes_kernel} bytes of rows and outputs; "
+            f"its bound counts {bytes_min} bytes and {ops} operations"
         )
     return rows
 

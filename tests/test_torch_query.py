@@ -8,6 +8,9 @@ on and off.  Answers, ``stats()`` counters, ``projection()`` and the P/E
 wear must be equal; packed words compare bit for bit.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -78,6 +81,45 @@ def test_serving_matches_reference(optimize, fuse_flush):
     assert port[3] == ref[3]  # P/E wear (spill programs included)
     if fuse_flush:
         assert port[1]["host_transfers"] == port[1]["flushes"] == port[1]["fused_dispatches"]
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("optimize", [True, False], ids=["opt", "noopt"])
+def test_smoke_mix_matches_reference(optimize):
+    """chip_smoke.py's table and query mix, at a small row count, served
+    as the smoke serves them: the port's answers equal numpy and its
+    counters equal the reference's after a first and a warm flush."""
+    smoke = _chip_smoke()
+    rows = 3000
+    table = smoke.make_table(rows, smoke.SEED)
+    got = {}
+    for M, kw in ((R, {}), (T, {"device": "cpu"})):
+        queries = smoke.build_queries(M, smoke.SEED)
+        store = M.BitmapStore()
+        store.ingest(table)
+        dev = M.FlashDevice(num_planes=4, **kw)
+        store.program(dev, warmup=queries[:3])
+        sched = M.BatchScheduler(dev, store, optimize=optimize, max_batch=256)
+        first = sched.serve(queries)
+        counters = [{k: sched.stats()[k] for k in smoke._COUNTERS}]
+        warm = sched.serve(queries)
+        counters.append({k: sched.stats()[k] for k in smoke._COUNTERS})
+        if M is T:
+            oracle = smoke.Oracle(table, store.words)
+            smoke.check_results(queries, first, oracle, mask_sample=store.words)
+            smoke.check_results(queries, warm, oracle, mask_sample=store.words)
+        values = [r.count if r.count is not None else np.asarray(r.value.words).tolist()
+                  for r in first + warm]
+        got[M] = (values, counters)
+    assert got[T] == got[R]
+    assert got[T][1][0]["host_transfers"] == got[T][1][0]["flushes"] == 1
 
 
 def test_answers_match_numpy():
