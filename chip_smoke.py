@@ -7,10 +7,21 @@ Run from the repository root with no arguments:
 
 It builds the CUDA kernels from ``src/repro_torch/csrc``, holds every
 kernel bit-exact against its plain PyTorch version on ragged shapes, then
-serves the paper's BMI workload (COUNT and MASK queries through
-``BatchScheduler``) over a 2^27-row bitmap index on the card, checks every
-answer against numpy, shows that the path launched every kernel, and
-prints each kernel's time, its plain version's time and its memory bound.
+drives the port's two paths on the card:
+
+1. FlashQL: the paper's BMI workload (COUNT and MASK queries through
+   ``BatchScheduler``) over a 2^27-row bitmap index, every answer checked
+   against numpy (kernels mws, popcount, threshold);
+2. training: starcoder2-3b at its published widths and depth, bf16, with
+   signSGD on 1-bit packed gradients (kernels pack_signs and
+   unpack_signs, once per gradient leaf per step), fed by the
+   bitmap-index filtered corpus (mws, popcount), every loss finite and
+   every leaf's packed words of the first step equal to the plain
+   version's;
+
+then votes packed planes of the largest gradient leaf's layout with the
+majority kernel, shows that each path launched its kernels, and prints
+each kernel's time, its plain version's time and its bound.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero.  Without a CUDA device, or outside a checkout, it exits 2
 and prints no result.
@@ -19,6 +30,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -45,12 +57,30 @@ REPLACES = {
     "mws": "src/repro/kernels/mws/mws.py:89",
     "popcount": "src/repro/kernels/popcount/popcount.py:54",
     "threshold": "src/repro/kernels/threshold/threshold.py:66",
+    "pack_signs": "src/repro/kernels/signcomp/signcomp.py:60",
+    "unpack_signs": "src/repro/kernels/signcomp/signcomp.py:88",
+    "majority": "src/repro/kernels/signcomp/signcomp.py:113",
 }
 SOURCES = {
     "mws": "src/repro_torch/csrc/mws.cu",
     "popcount": "src/repro_torch/csrc/popcount.cu",
     "threshold": "src/repro_torch/csrc/threshold.cu",
+    "pack_signs": "src/repro_torch/csrc/signcomp.cu",
+    "unpack_signs": "src/repro_torch/csrc/signcomp.cu",
+    "majority": "src/repro_torch/csrc/signcomp.cu",
 }
+
+# the training path: examples/train_lm.py's data and optimizer on the
+# full starcoder2-3b configuration
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 256
+TRAIN_SAMPLES = 4096
+TRAIN_FILTER = ("lang_en", "quality_high")
+TRAIN_LR = 3e-3
+WARMUP_STEPS = 2
+TIMED_STEPS = 8
+VOTERS = (4, 5)  # majority votes at the largest leaf's layout
 
 
 # the hardware-independent counters reported per run (stats() keys)
@@ -263,6 +293,73 @@ def check_kernels(device, widths=WIDTHS) -> int:
     return cases
 
 
+SIGN_LENGTHS = (1, 31, 16383, 16385, 3 * 16384 + 7, 1_000_003)
+BIG_SIGN_N = 65_537 * 16384 + 1001  # 65,538 packed rows: past grid-y's 65,535
+VOTE_K = (1, 2, 3, 4, 5, 8)
+VOTE_SHAPES = ((3, 512), (70, 512), (5, 7))
+
+
+def sign_rule(x):
+    """±1 by the reference's sign test: ``x >= 0`` with subnormals flushed
+    to zero (XLA does so on the CPU and the TPU), so -0.0 and negative
+    subnormals give +1 and NaN gives -1."""
+    import torch
+
+    return torch.where(x > -torch.finfo(torch.float32).tiny, 1.0, -1.0)
+
+
+def check_signcomp(device, lengths=SIGN_LENGTHS + (BIG_SIGN_N,)) -> int:
+    """Bit-exact pack/unpack/majority kernels vs plain versions: ragged n,
+    ±0.0, ±subnormal, NaN and ±inf planted, K in VOTE_K; returns cases."""
+    import torch
+
+    from repro_torch.kernels.signcomp import (
+        LANES,
+        compress_signs,
+        compress_signs_ref,
+        decompress_signs,
+        decompress_signs_ref,
+        majority_ref,
+        majority_vote,
+    )
+
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 2)
+    special = torch.tensor(
+        [0.0, -0.0, float("nan"), float("inf"), -float("inf"), -1e-45, 1e-45, -1.17549435e-38],
+        device=device,
+    )
+
+    def same(a, b, what):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"kernel != plain version: {what}")
+
+    cases = 0
+    for n in lengths:
+        x = torch.randn(n, generator=g, device=device)
+        k = min(n, special.numel())
+        x[:k] = special[:k]
+        if n >= 2 * special.numel():
+            x[n // 2 : n // 2 + k] = special
+        words = compress_signs(x)
+        same(words, compress_signs_ref(x, LANES), f"pack n={n}")
+        back = decompress_signs(words, n)
+        same(back, decompress_signs_ref(words, n), f"unpack n={n}")
+        same(back, sign_rule(x), f"round trip n={n}")
+        cases += 3
+        del x, words, back
+    for k in VOTE_K:
+        for r, w in VOTE_SHAPES:
+            stacks = torch.randint(
+                -(2**31), 2**31, (k, r, w), generator=g, dtype=torch.int32, device=device
+            )
+            same(majority_vote(stacks), majority_ref(stacks), f"majority K={k} {r}x{w}")
+            cases += 1
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return cases
+
+
 # -- phase 3: the main path ----------------------------------------------------
 
 
@@ -388,10 +485,10 @@ def main_path(device, rows: int, log=log) -> dict:
     return out
 
 
-def profile_flush(sched, queries) -> dict:
-    """One warm flush under ``torch.profiler``: its wall time, the device's
-    busy time (the self time of every device-side kernel, copy and memset)
-    and idle share, and the largest device consumers."""
+def device_profile(fn) -> tuple[float, list]:
+    """Run ``fn`` once under ``torch.profiler``; its wall time (ms) and the
+    self time of every device-side kernel, copy and memset as
+    ``(ms, count, name)``, largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -399,7 +496,8 @@ def profile_flush(sched, queries) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sched.serve(queries)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = []
     for e in prof.key_averages():
@@ -409,8 +507,15 @@ def profile_flush(sched, queries) -> dict:
         if us is None:
             us = e.self_cuda_time_total
         dev.append((us / 1e3, e.count, e.key))
-    busy_ms = sum(ms for ms, _, _ in dev)
     dev.sort(reverse=True)
+    return wall_ms, dev
+
+
+def profile_flush(sched, queries) -> dict:
+    """One warm flush under ``torch.profiler``: its wall time, the device's
+    busy time and idle share, and the largest device consumers."""
+    wall_ms, dev = device_profile(lambda: sched.serve(queries))
+    busy_ms = sum(ms for ms, _, _ in dev)
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if dev else "not measured",
@@ -468,38 +573,301 @@ def kernel_report(recorded: dict, launches: dict, card: str) -> list[dict]:
             bytes_min = bytes_kernel = R * W * 4 + R * 4
             ops = 2 * R * W
             shape = f"words {tuple(x.shape)}"
-        got, want = kern(), plain()
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        if got.shape != want.shape or err:
-            raise AssertionError(f"{name}: kernel != plain version at the main path's shape")
-        del got, want
-        ms = time_ms(kern, KERNEL_REPS)
-        plain_ms = time_ms(plain, max(3, KERNEL_REPS // 4))
-        bound_bytes_ms = bytes_min / bw * 1e3
-        bound_ops_ms = ops / _OPS_PER_S * 1e3
-        rows.append(
-            {
-                "name": name,
-                "route": "cuda",
-                "source": SOURCES[name],
-                "replaces": REPLACES[name],
-                "launches": launches[name],
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-                "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-                # no single PyTorch call computes these functions (no bitwise
-                # reduction over an axis, no popcount in this build's API)
-                "library_ms": None,
-                "shape": shape,
-            }
-        )
+        rows.append(kernel_row(name, kern, plain, launches[name], bytes_min, ops, bw, shape))
         log(
             f"kernel {name}: indexes {bytes_kernel} bytes of rows and outputs; "
             f"its bound counts {bytes_min} bytes and {ops} operations"
         )
     return rows
+
+
+def kernel_row(name, kern, plain, launches, bytes_min, ops, bw, shape, **extra) -> dict:
+    """Hold ``kern()`` equal to ``plain()``, time both, and build the
+    ``kernels`` line's entry.  No single PyTorch call computes any of
+    these functions (no bitwise reduction over an axis, no popcount in
+    this build's API, no bit packing), so there is no library time."""
+    import torch
+
+    got, want = kern(), plain()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: kernel shape {got.shape} != plain {want.shape}")
+    if got.dtype.is_floating_point:
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        bad = err or not torch.equal(got, want)  # NaN-free ±1 here
+    else:
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        bad = err
+    if bad:
+        raise AssertionError(f"{name}: kernel != plain version at the path's shape")
+    del got, want
+    ms = time_ms(kern, KERNEL_REPS)
+    plain_ms = time_ms(plain, max(3, KERNEL_REPS // 4))
+    bound_bytes_ms = bytes_min / bw * 1e3
+    bound_ops_ms = ops / _OPS_PER_S * 1e3
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "library_ms": None,
+        "shape": shape,
+        **extra,
+    }
+
+
+# -- phase 5: the training path -------------------------------------------------
+
+_MATMUL_KEYS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "matmul")
+_SIGNCOMP_KEYS = ("pack_signs_kernel", "unpack_signs_kernel")
+
+
+def profile_step(trainer, batches) -> dict:
+    """One training step under ``torch.profiler``: wall and device busy
+    time, idle share, and the matmuls' and the sign kernels' time and
+    share of the step."""
+    wall_ms, dev = device_profile(lambda: trainer.train(batches, 1, log_every=0))
+    if not dev:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+    busy = sum(ms for ms, _, _ in dev)
+    mm = sum(ms for ms, _, k in dev if any(t in k.lower() for t in _MATMUL_KEYS))
+    sc = sum(ms for ms, _, k in dev if any(t in k for t in _SIGNCOMP_KEYS))
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy,
+        "device_idle_share": 1 - busy / wall_ms,
+        "matmul_ms": mm,
+        "matmul_share_of_step": mm / wall_ms,
+        "signcomp_ms": sc,
+        "signcomp_share_of_step": sc / wall_ms,
+        "top": [[key[:90], n, ms] for ms, n, key in dev[:12]],
+    }
+
+
+def train_path(device, cfg, log=log) -> dict:
+    """Train ``cfg`` with signSGD through ``Trainer`` on batches of the
+    bitmap-index filtered corpus: WARMUP_STEPS steps (the first checks
+    every leaf's packed words and round trip against the plain versions),
+    then TIMED_STEPS timed steps and one profiled step."""
+    import torch
+
+    from repro_torch.core.bitops import to_uint32
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels.mws import mws_gather
+    from repro_torch.kernels.popcount import popcount
+    from repro_torch.kernels.signcomp import LANES, compress_signs, compress_signs_ref, decompress_signs
+    from repro_torch.models.state import flatten
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kernels = {
+        "mws": mws_gather,
+        "popcount": popcount,
+        "pack_signs": compress_signs,
+        "unpack_signs": decompress_signs,
+    }
+    for fn in kernels.values():
+        fn.launches = 0
+
+    t0 = time.perf_counter()
+    corpus = SyntheticCorpus(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, num_samples=TRAIN_SAMPLES, device=device
+    )
+    kept = corpus.index.count(list(TRAIN_FILTER))
+    planes = np.unpackbits(to_uint32(corpus.index.planes).view(np.uint8), axis=1, bitorder="little")
+    pick = [corpus.index.names.index(p) for p in TRAIN_FILTER]
+    want = int((planes[pick[0]] & planes[pick[1]])[:TRAIN_SAMPLES].sum())
+    if kept != want:
+        raise AssertionError(f"BMI filter keeps {kept} samples, numpy {want}")
+    tcfg = TrainerConfig(
+        opt=OptimizerConfig(mode="signsgd", lr=TRAIN_LR), compress_grads="signsgd"
+    )
+    trainer = Trainer(cfg, tcfg, device=device)
+    leaves = flatten(trainer.params)
+    n_params = sum(p.numel() for p in leaves.values())
+    batches = corpus.batches(TRAIN_BATCH, TRAIN_FILTER)
+    setup_s = time.perf_counter() - t0
+    log(
+        f"train setup: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, ff {cfg.d_ff}, "
+        f"V {cfg.vocab}, {n_params} params in {len(leaves)} leaves, {cfg.param_dtype}, "
+        f"remat {cfg.remat}; BMI filter keeps {kept}/{TRAIN_SAMPLES} samples (numpy "
+        f"{want}); {setup_s:.2f} s"
+    )
+
+    rows_per_chunk = 4096  # compare in slices of 64 Mi elements
+    chunk = rows_per_chunk * 32 * LANES
+    checked = {}
+
+    def check_leaf(name, acc, words, signs):
+        flat = acc.view(-1)
+        n = flat.numel()
+        for r0 in range(0, words.shape[0], rows_per_chunk):
+            part = flat[r0 * 32 * LANES : r0 * 32 * LANES + chunk]
+            if not torch.equal(words[r0 : r0 + rows_per_chunk], compress_signs_ref(part, LANES)):
+                raise AssertionError(f"{name}: packed words != plain version at row {r0}")
+            if not torch.equal(signs[r0 * 32 * LANES : r0 * 32 * LANES + chunk], sign_rule(part)):
+                raise AssertionError(f"{name}: round trip != sign rule at row {r0}")
+        checked[name] = n
+
+    trainer.leaf_hook = check_leaf
+    losses = trainer.train(batches, 1, log_every=0)
+    trainer.leaf_hook = None
+    if sorted(checked) != sorted(leaves):
+        raise AssertionError(f"checked {len(checked)} of {len(leaves)} leaves")
+    losses += trainer.train(batches, WARMUP_STEPS - 1, log_every=0)
+    step_s = []
+    for _ in range(TIMED_STEPS):
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses += trainer.train(batches, 1, log_every=0)
+        step_s.append(time.perf_counter() - t1)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    lo, hi = math.log(cfg.vocab) - 0.8, math.log(cfg.vocab) + 2.2
+    if not lo <= losses[0] <= hi:
+        raise AssertionError(f"first loss {losses[0]} outside [{lo:.2f}, {hi:.2f}]")
+    if on_card:  # the plain versions, on the CPU, count nothing
+        if not launches["pack_signs"] == launches["unpack_signs"] == len(leaves) * steps:
+            raise AssertionError(f"sign kernels launched {launches}, not once per leaf per step")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    p50 = statistics.median(step_s)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {
+        "arch": cfg.name,
+        "layers": cfg.n_layers,
+        "params": n_params,
+        "leaves": len(leaves),
+        "largest_leaf": max(checked.values()),
+        "losses": losses,
+        "step_p50_s": p50,
+        "tokens_per_s": tokens * TIMED_STEPS / sum(step_s),
+        "step_s": step_s,
+        "launches": launches,
+        "max_memory_allocated": peak,
+    }
+    log(
+        f"train: {steps} steps, losses {losses[0]:.4f} -> {losses[-1]:.4f}, step p50 "
+        f"{p50 * 1e3:.2f} ms, {out['tokens_per_s']:.1f} tokens/s over {TIMED_STEPS} steps, "
+        f"launches {launches}, max_memory_allocated {peak}"
+    )
+    if on_card:
+        out["profile"] = profile_step(trainer, batches)
+        log(f"  one step under torch.profiler: {out['profile']}")
+    del trainer, batches, corpus
+    return out
+
+
+# -- phase 6: the sign kernels at the training path's largest leaf ---------------
+
+
+def signcomp_report(n: int, train: dict, card: str) -> list[dict]:
+    """pack_signs and unpack_signs timed at the largest gradient leaf the
+    training path compressed (n elements), on fresh data from the seed;
+    ``launches`` are the training path's."""
+    import torch
+
+    from repro_torch.kernels.signcomp import (
+        LANES,
+        compress_signs,
+        compress_signs_ref,
+        decompress_signs,
+        decompress_signs_ref,
+        sign_layout,
+    )
+
+    bw = hbm_rate(card)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 3)
+    x = torch.randn(n, generator=g, device="cuda")
+    words = compress_signs(x)
+    layout = sign_layout(n)
+    out_bytes = 4 * layout.rows * layout.words
+    per_step = train["launches"]["pack_signs"] // (WARMUP_STEPS + TIMED_STEPS)
+    rows = [
+        kernel_row(
+            "pack_signs",
+            lambda: compress_signs(x),
+            lambda: compress_signs_ref(x, LANES),
+            train["launches"]["pack_signs"],
+            4 * n + out_bytes,
+            3 * n,  # a compare, a shift and an OR per element
+            bw,
+            f"x ({n},) f32 -> words ({layout.rows}, {layout.words})",
+            launches_per_step=per_step,
+        ),
+        kernel_row(
+            "unpack_signs",
+            lambda: decompress_signs(words, n),
+            lambda: decompress_signs_ref(words, n),
+            train["launches"]["unpack_signs"],
+            out_bytes + 4 * n,
+            3 * n,  # a shift, an AND and a select per element
+            bw,
+            f"words ({layout.rows}, {layout.words}) -> ({n},) f32",
+            launches_per_step=per_step,
+        ),
+    ]
+    del x, words
+    return rows
+
+
+# -- phase 7: majority votes at the largest leaf's layout --------------------------
+
+
+def majority_phase(n: int, card: str) -> dict:
+    """Vote K in VOTERS packed sign planes of the largest leaf's layout, as
+    K data-parallel replicas would (each plane packs one replica's
+    gradient: a shared part plus its own noise), with the counter set to 0
+    just before; check every vote against the plain version; time the
+    largest K.  No program path votes on one card (ROADMAP A8d)."""
+    import torch
+
+    from repro_torch.kernels.signcomp import compress_signs, majority_ref, majority_vote, sign_layout
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 4)
+    K = max(VOTERS)
+    layout = sign_layout(n)
+    shared = torch.randn(n, generator=g, device="cuda")
+    planes = torch.empty((K, layout.rows, layout.words), dtype=torch.int32, device="cuda")
+    for k in range(K):
+        planes[k] = compress_signs(shared + torch.randn(n, generator=g, device="cuda"))
+    del shared
+    majority_vote.launches = 0
+    votes = {k: majority_vote(planes[:k]) for k in VOTERS}
+    launches = majority_vote.launches
+    for k, v in votes.items():
+        if not torch.equal(v, majority_ref(planes[:k])):
+            raise AssertionError(f"majority K={k}: kernel != plain version")
+    del votes
+    RW = layout.rows * layout.words
+    row = kernel_row(
+        "majority",
+        lambda: majority_vote(planes),
+        lambda: majority_ref(planes),
+        launches,
+        4 * K * RW + 4 * RW,
+        48 * K * RW + 64 * RW,  # 16 SWAR shift/and/add triples per input word
+        hbm_rate(card),
+        f"stacks ({K}, {layout.rows}, {layout.words}) -> ({layout.rows}, {layout.words})",
+        path=f"votes of K={list(VOTERS)} replica planes; no program path on one card",
+    )
+    del planes
+    return row
 
 
 def _card() -> str:
@@ -543,7 +911,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     t0 = time.perf_counter()
-    cases = check_kernels("cuda")
+    cases = check_kernels("cuda") + check_signcomp("cuda")
     log(f"kernels vs plain versions: {cases} cases bit-exact ({time.perf_counter() - t0:.2f} s)")
 
     log(json.dumps({"reduced": {"rows": [PAPER_ROWS, ROWS], "why": "the smoke's time limit"}}))
@@ -557,11 +925,32 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['launches']} launches per flush"
         )
+    del res["recorded"]
     summary = {
         k: {kk: vv for kk, vv in res[k].items() if kk != "stats"} | {"stats": res[k]["stats"]}
         for k in ("optimize", "plain")
     }
     log(json.dumps({"main_path": summary, "rows": ROWS, "words": res["words"], "card": card_line}))
+    del res
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    train = train_path("cuda", get_config(TRAIN_ARCH))
+    torch.cuda.empty_cache()
+    log(json.dumps({"train_path": train, "card": card_line}))
+    log(f"training path: {time.perf_counter() - t0:.1f} s")
+    sign_rows = signcomp_report(train["largest_leaf"], train, kind)
+    torch.cuda.empty_cache()
+    sign_rows.append(majority_phase(train["largest_leaf"], kind))
+    for r in sign_rows:
+        log(
+            f"kernel {r['name']}: {r['ms']:.4f} ms at {r['shape']}, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['launches']} launches"
+        )
+    report += sign_rows
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": report}))

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("mws.cu", "popcount.cu", "threshold.cu")
+SOURCES = ("mws.cu", "popcount.cu", "threshold.cu", "signcomp.cu")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -47,6 +47,11 @@ _SIGNATURES = {
     "popcount_launch": (_P, _P, _I, _L, _I, _P),
     # (x, out, B, n, W, k, invert, vec, stream)
     "threshold_launch": (_P, _P, _I, _I, _L, _I, _I, _I, _P),
+    # (x or words, out, n, R, W, vec, stream)
+    "pack_signs_launch": (_P, _P, _L, _L, _L, _I, _P),
+    "unpack_signs_launch": (_P, _P, _L, _L, _L, _I, _P),
+    # (stacks, out, K, words, stream)
+    "majority_launch": (_P, _P, _I, _L, _P),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,282 @@
+"""Shared model layers: norms, embeddings, RoPE, GQA attention, MLPs.
+
+Functional style, as in the reference: ``init_*`` builds a dict of
+tensors, ``*_fwd`` applies it.  Weights keep the reference's
+``(d_in, d_out)`` orientation, so a reference parameter crosses over as
+a plain copy.  Matmul-bearing layers compute in the dtype of their
+input (bf16 on the card, f32 in the tests); norms and logits run in f32.
+Attention is written out in plain torch ops (the naive and the
+online-softmax paths) to mirror the reference, not a fused library call.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, torch.Tensor]
+
+
+def _init_dense(gen, d_in, d_out, dtype, device, scale=None, leading=()):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((*leading, d_in, d_out), generator=gen, device=device)
+    return w.mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d, dtype=torch.float32, device=None, leading=()) -> Params:
+    return {"scale": torch.ones((*leading, d), dtype=dtype, device=device)}
+
+
+def rmsnorm_fwd(p, x, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p["scale"].float()).to(dt)
+
+
+def init_layernorm(d, dtype=torch.float32, device=None, leading=()) -> Params:
+    return {
+        "scale": torch.ones((*leading, d), dtype=dtype, device=device),
+        "bias": torch.zeros((*leading, d), dtype=dtype, device=device),
+    }
+
+
+def layernorm_fwd(p, x, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * p["scale"].float() + p["bias"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding (tied)
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(gen, vocab, d, dtype=torch.float32, device=None) -> Params:
+    emb = torch.randn((vocab, d), generator=gen, device=device)
+    return {"embedding": emb.mul_(0.02).to(dtype)}
+
+
+def embed_fwd(p, tokens, compute_dtype):
+    return F.embedding(tokens, p["embedding"]).to(compute_dtype)
+
+
+def unembed_fwd(p, x):
+    # logits in f32 for loss stability
+    return torch.einsum("bsd,vd->bsv", x.float(), p["embedding"].float())
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+def apply_rope(x, positions, theta=10_000.0):
+    """x: (B, S, H, hd); positions: (B, S) integer."""
+    hd = x.shape[-1]
+    inv = torch.from_numpy(rope_frequencies(hd, theta)).to(x.device)  # (hd/2,)
+    ang = positions[..., None].float() * inv  # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2 :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention (causal, optional sliding window; training forward)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(
+    gen,
+    d_model,
+    n_heads,
+    n_kv_heads,
+    head_dim=None,
+    dtype=torch.float32,
+    device=None,
+    bias=False,
+    leading=(),
+) -> Params:
+    head_dim = head_dim or d_model // n_heads
+    kw = dict(dtype=dtype, device=device, leading=leading)
+    p = {
+        "wq": _init_dense(gen, d_model, n_heads * head_dim, **kw),
+        "wk": _init_dense(gen, d_model, n_kv_heads * head_dim, **kw),
+        "wv": _init_dense(gen, d_model, n_kv_heads * head_dim, **kw),
+        "wo": _init_dense(gen, n_heads * head_dim, d_model, **kw),
+    }
+    if bias:
+        for name, d in (
+            ("bq", n_heads * head_dim),
+            ("bk", n_kv_heads * head_dim),
+            ("bv", n_kv_heads * head_dim),
+            ("bo", d_model),
+        ):
+            p[name] = torch.zeros((*leading, d), dtype=dtype, device=device)
+    return p
+
+
+def _mask_bias(S, window, device):
+    """Causal (+ optional sliding-window) additive f32 mask bias."""
+    q_pos = torch.arange(S, device=device)[:, None]
+    kv_pos = torch.arange(S, device=device)[None, :]
+    ok = kv_pos <= q_pos
+    if window is not None:
+        ok &= kv_pos > q_pos - window
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ok, zero, torch.finfo(torch.float32).min)
+
+
+BLOCKWISE_KV_BLOCK = 1024
+BLOCKWISE_MIN_KV = 4096  # use the online-softmax path above this kv length
+
+
+def _blockwise_attention(qg, k, v, *, window, scale):
+    """Online softmax over KV blocks, never materializing the (Sq, Skv)
+    scores.  qg: (B, Sq, n_kv, group, hd); k/v: (B, Skv, n_kv, hd).
+    Accumulates in f32; the loop over blocks is the reference's scan."""
+    B, Sq, NKV, G, hd = qg.shape
+    Skv = k.shape[1]
+    blk = min(BLOCKWISE_KV_BLOCK, Skv)
+    pad = (-Skv) % blk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nblk = k.shape[1] // blk
+    dev = qg.device
+
+    q32 = qg.float() * scale
+    q_pos = torch.arange(Sq, device=dev)
+    m = torch.full((B, NKV, G, Sq), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, NKV, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, NKV, G, Sq, hd), dtype=torch.float32, device=dev)
+    for i in range(nblk):
+        start = i * blk
+        kblk = k[:, start : start + blk].float()
+        vblk = v[:, start : start + blk].float()
+        s = torch.einsum("bsngh,btnh->bngst", q32, kblk)  # (B, NKV, G, Sq, blk)
+        kv_pos = start + torch.arange(blk, device=dev)
+        ok = kv_pos[None, :] <= q_pos[:, None]  # causal
+        if window is not None:
+            ok &= kv_pos[None, :] > q_pos[:, None] - window
+        s = s.masked_fill(~ok, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (m_new = -inf)
+        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - safe_m[..., None]).masked_fill(~ok, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bngst,btnh->bngsh", p, vblk)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, NKV, G, Sq, hd)
+    return out.movedim(3, 1).reshape(B, Sq, NKV * G * hd)
+
+
+def attention_fwd(
+    p,
+    x,
+    *,
+    n_heads,
+    n_kv_heads,
+    rope_theta=10_000.0,
+    use_rope=True,
+    window=None,
+    impl="auto",  # "naive" | "blockwise" | "auto"
+):
+    """Causal self-attention over ``x`` (B, S, D) -> (B, S, D).  The KV
+    cache and cross-attention of the reference wait for the serving
+    slice (ROADMAP A8b)."""
+    B, S, D = x.shape
+    hd = p["wq"].shape[-1] // n_heads
+    cdt = x.dtype
+
+    def proj(w, b, nh):
+        y = torch.einsum("bsd,dh->bsh", x, w.to(cdt))
+        if b is not None:
+            y = y + b.to(cdt)
+        return y.reshape(B, S, nh, hd)
+
+    q = proj(p["wq"], p.get("bq"), n_heads)
+    k = proj(p["wk"], p.get("bk"), n_kv_heads)
+    v = proj(p["wv"], p.get("bv"), n_kv_heads)
+
+    if use_rope:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+
+    group = n_heads // n_kv_heads
+    qg = q.reshape(B, S, n_kv_heads, group, hd)
+    use_blockwise = impl == "blockwise" or (impl == "auto" and S >= BLOCKWISE_MIN_KV)
+    if use_blockwise:
+        out = _blockwise_attention(qg, k, v, window=window, scale=1.0 / math.sqrt(hd)).to(cdt)
+    else:
+        logits = torch.einsum("bsngh,btnh->bngst", qg, k) / math.sqrt(hd)
+        logits = logits.float() + _mask_bias(S, window, x.device)[None, None, None]
+        attn = torch.softmax(logits, dim=-1).to(cdt)
+        out = torch.einsum("bngst,btnh->bsngh", attn, v).reshape(B, S, -1)
+    out = torch.einsum("bsh,hd->bsd", out, p["wo"].to(cdt))
+    if p.get("bo") is not None:
+        out = out + p["bo"].to(cdt)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(
+    gen, d_model, d_ff, dtype=torch.float32, device=None, gated=True, bias=False, leading=()
+) -> Params:
+    kw = dict(dtype=dtype, device=device, leading=leading)
+    p = {
+        "up": _init_dense(gen, d_model, d_ff, **kw),
+        "down": _init_dense(gen, d_ff, d_model, **kw),
+    }
+    if gated:
+        p["gate"] = _init_dense(gen, d_model, d_ff, **kw)
+    if bias:
+        p["b_up"] = torch.zeros((*leading, d_ff), dtype=dtype, device=device)
+        p["b_down"] = torch.zeros((*leading, d_model), dtype=dtype, device=device)
+    return p
+
+
+_ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda h: F.gelu(h, approximate="tanh"),  # jax.nn.gelu's default
+    "relu": F.relu,
+}
+
+
+def mlp_fwd(p, x, activation="silu"):
+    cdt = x.dtype
+    act = _ACTIVATIONS[activation]
+    h = torch.einsum("bsd,df->bsf", x, p["up"].to(cdt))
+    if p.get("b_up") is not None:
+        h = h + p["b_up"].to(cdt)
+    if "gate" in p:
+        g = torch.einsum("bsd,df->bsf", x, p["gate"].to(cdt))
+        h = act(g) * h
+    else:
+        h = act(h)
+    out = torch.einsum("bsf,fd->bsd", h, p["down"].to(cdt))
+    if p.get("b_down") is not None:
+        out = out + p["b_down"].to(cdt)
+    return out

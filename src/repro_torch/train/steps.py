@@ -1,0 +1,64 @@
+"""Loss and train-step factories, generic over architecture."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.registry import get_model
+from repro_torch.models.state import flatten
+from repro_torch.train.optimizer import (
+    OptimizerConfig,
+    adamw_update,
+    clip_by_global_norm,
+)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy; logits (B, S, V) f32, labels (B, S)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def make_loss_fn(cfg: ArchConfig) -> Callable:
+    model = get_model(cfg)
+
+    def loss_fn(params, batch):
+        logits = model.forward(cfg, params, **batch["inputs"])
+        # the next-token shift happens in the data pipeline; labels align
+        # to logits positions directly
+        return softmax_xent(logits, batch["labels"])
+
+    return loss_fn
+
+
+def loss_and_grads(loss_fn: Callable, params, batch):
+    """The loss (a 0-d tensor) and the gradient of every leaf of
+    ``params``, as a list in :func:`~repro_torch.models.state.flatten`
+    order."""
+    leaves = list(flatten(params).values())
+    for p in leaves:
+        if not p.requires_grad:
+            p.requires_grad_(True)
+    with torch.enable_grad():
+        loss = loss_fn(params, batch)
+        grads = list(torch.autograd.grad(loss, leaves))
+    return loss.detach(), grads
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig) -> Callable:
+    """AdamW step with global-norm clipping; updates in place and returns
+    ``(params, opt_state, metrics)``."""
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(loss_fn, params, batch)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+            params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step

@@ -23,9 +23,9 @@ def _port_modules() -> list[str]:
     )
 
 
-def test_importing_the_port_loads_no_jax():
-    mods = _port_modules()
-    assert "repro_torch.query.scheduler" in mods and "repro_torch.kernels.mws.ops" in mods
+def _import_in_subprocess(mods: list[str]) -> None:
+    """Import ``mods`` in a fresh interpreter; fail if JAX or the
+    reference package was loaded on the way."""
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -39,6 +39,28 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = _port_modules()
+    assert "repro_torch.query.scheduler" in mods and "repro_torch.kernels.mws.ops" in mods
+    assert "repro_torch.train.trainer" in mods and "repro_torch.kernels.signcomp.ops" in mods
+    _import_in_subprocess(mods)
+
+
+@pytest.mark.parametrize(
+    "mod",
+    [
+        "repro_torch.models",
+        "repro_torch.train",
+        "repro_torch.configs",
+        "repro_torch.data",
+        "repro_torch.launch.train",
+    ],
+)
+def test_the_training_stack_loads_no_jax(mod):
+    """Each entry point of the training slice, imported on its own."""
+    _import_in_subprocess([mod])
 
 
 @pytest.mark.parametrize(
