@@ -7,12 +7,17 @@ Run from the repository root with no arguments:
 
 It builds the CUDA kernels from ``src/repro_torch/csrc``, holds every
 kernel bit-exact against its plain PyTorch version on ragged shapes, then
-drives the port's two paths on the card:
+drives the port's three paths on the card:
 
 1. FlashQL: the paper's BMI workload (COUNT and MASK queries through
-   ``BatchScheduler``) over a 2^27-row bitmap index, every answer checked
-   against numpy (kernels mws, popcount, threshold);
-2. training: starcoder2-3b at its published widths and depth, bf16, with
+   ``BatchScheduler``) over a 2^27-row bitmap index, then the same flush
+   with SUM/AVG/MIN/MAX/TOP-K/GROUP BY queries beside it, every answer
+   checked against numpy (kernels mws, popcount, threshold);
+2. the one-pass BMI count (kernel mws_count): users active on every one
+   of the last 30 and 365 days at the paper's 800M users, held against
+   the plain version and against mws + popcount, run when nothing else is
+   resident on the card (the 365-day stack takes 36.5 GB);
+3. training: starcoder2-3b at its published widths and depth, bf16, with
    signSGD on 1-bit packed gradients (kernels pack_signs and
    unpack_signs, once per gradient leaf per step), fed by the
    bitmap-index filtered corpus (mws, popcount), every loss finite and
@@ -29,6 +34,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -40,7 +46,9 @@ from pathlib import Path
 import numpy as np
 
 ROWS = 1 << 27  # the paper's BMI bitmap is 800M users; cut for the time limit
-PAPER_ROWS = 800_000_000
+PAPER_ROWS = 800_000_000  # src/repro/flashsim/workloads.py:77
+BMI_DAYS = (30, 365)  # the one-pass count at the paper's full size
+NUM_PRICES = 16  # distinct price points of the aggregate column
 NUM_COUNT = 64
 SEED = 0
 TIMED_FLUSHES = 20
@@ -56,6 +64,8 @@ _OPS_PER_S = 67e12
 REPLACES = {
     "mws": "src/repro/kernels/mws/mws.py:89",
     "popcount": "src/repro/kernels/popcount/popcount.py:54",
+    "popcount_aggregates": "src/repro/kernels/popcount/popcount.py:54",
+    "mws_count": "src/repro/kernels/mws_count/mws_count.py:84",
     "threshold": "src/repro/kernels/threshold/threshold.py:66",
     "pack_signs": "src/repro/kernels/signcomp/signcomp.py:60",
     "unpack_signs": "src/repro/kernels/signcomp/signcomp.py:88",
@@ -64,6 +74,8 @@ REPLACES = {
 SOURCES = {
     "mws": "src/repro_torch/csrc/mws.cu",
     "popcount": "src/repro_torch/csrc/popcount.cu",
+    "popcount_aggregates": "src/repro_torch/csrc/popcount.cu",
+    "mws_count": "src/repro_torch/csrc/mws_count.cu",
     "threshold": "src/repro_torch/csrc/threshold.cu",
     "pack_signs": "src/repro_torch/csrc/signcomp.cu",
     "unpack_signs": "src/repro_torch/csrc/signcomp.cu",
@@ -105,12 +117,16 @@ def log(msg: str) -> None:
 
 
 def make_table(rows: int, seed: int) -> dict[str, np.ndarray]:
-    """The BMI user table: country in 0..7, device in 0..3, from a seed."""
+    """The BMI user table: country in 0..7, device in 0..3, and a price
+    from NUM_PRICES points drawn once in 1..9,999, all from a seed."""
     rng = np.random.default_rng(seed)
-    return {
+    table = {
         "country": rng.integers(0, 8, rows, dtype=np.uint8),
         "device": rng.integers(0, 4, rows, dtype=np.uint8),
     }
+    points = np.sort(rng.choice(np.arange(1, 10_000, dtype=np.uint16), NUM_PRICES, replace=False))
+    table["price"] = points[rng.integers(0, NUM_PRICES, rows)]
+    return table
 
 
 def build_queries(q, seed: int) -> list:
@@ -150,26 +166,91 @@ def build_queries(q, seed: int) -> list:
     return qs
 
 
+def build_aggregates(q, seed: int) -> list:
+    """20 aggregates over the price column, with predicates shaped like
+    build_queries' COUNTs: 8 SUM, 4 AVG, 2 MIN, 2 MAX, 2 TOP-K by country,
+    2 GROUP BY device of SUM; one MIN selects no row."""
+    rng = np.random.default_rng(seed + 5)
+    aggs = (
+        [q.Sum("price")] * 8
+        + [q.Avg("price")] * 4
+        + [q.Min("price")] * 2
+        + [q.Max("price")] * 2
+        + [q.TopK("country", 3)] * 2
+        + [q.GroupBy("device", q.Sum("price"))] * 2
+    )
+    qs = []
+    for i, a in enumerate(aggs):
+        c = int(rng.integers(0, 8))
+        d = int(rng.integers(0, 4))
+        where = (
+            q.Eq("country", c) & q.Eq("device", d),
+            q.Eq("country", c),
+            q.In("device", [d, (d + 1) % 4]),
+        )[i % 3]
+        qs.append(q.Query(where, agg=a))
+    qs[12] = q.Query(q.Eq("country", 3) & q.Not(q.Eq("country", 3)), agg=q.Min("price"))
+    return qs
+
+
 class Oracle:
     """numpy answers.  Every predicate here depends only on the
-    (country, device) pair, so a count is a sum over the 32 cells of the
-    table's joint histogram; masks are checked on a sampled row slice."""
+    (country, device) pair, so every aggregate follows from the table's
+    joint (country, device, price) histogram of 8 x 4 x NUM_PRICES cells;
+    masks are checked on a sampled row slice."""
 
     def __init__(self, table, words: int):
         self.table = table
         self.words = words
         self.rows = len(table["country"])
-        hist = np.bincount(
-            table["country"].astype(np.int64) * 4 + table["device"], minlength=32
-        )
-        self.hist = hist
+        price = table["price"].astype(np.int64)
+        self.points = np.flatnonzero(np.bincount(price))  # distinct prices, sorted
+        p = len(self.points)
+        lut = np.zeros(self.points[-1] + 1, np.int64)
+        lut[self.points] = np.arange(p)
+        price_ix = lut[price]
+        cell = (table["country"].astype(np.int64) * 4 + table["device"]) * p + price_ix
+        self.hist3 = np.bincount(cell, minlength=32 * p).reshape(32, p)
         cells = np.arange(32)
         self.cells = {"country": cells // 4, "device": cells % 4}
 
-    def count(self, pred) -> int:
+    def answer(self, query):
+        """The exact answer of a COUNT/SUM/AVG/MIN/MAX/TOP-K/GROUP BY query
+        over (country, device) predicates and the price column."""
+        from repro_torch.query.ast import Avg, Count, GroupBy, Max, Min, Sum, TopK, normalize_agg
         from repro_torch.query.oracle import np_select
 
-        return int(self.hist[np_select(pred, self.cells, 32)].sum())
+        spec = normalize_agg(query.agg)
+        sel = np_select(query.where, self.cells, 32)
+        h = np.where(sel[:, None], self.hist3, 0)  # (32, P)
+        points = [int(v) for v in self.points]
+
+        def inner(hp, agg):  # hp: (P,) counts per price point
+            n = int(hp.sum())
+            total = sum(int(c) * v for c, v in zip(hp, points))
+            if isinstance(agg, Count):
+                return n
+            if isinstance(agg, Sum):
+                return total
+            if isinstance(agg, Avg):
+                return total / n if n else None
+            present = [v for c, v in zip(hp, points) if c]
+            if isinstance(agg, Min):
+                return min(present) if present else None
+            if isinstance(agg, Max):
+                return max(present) if present else None
+            raise TypeError(f"no oracle for {agg!r}")
+
+        if isinstance(spec, (TopK, GroupBy)):
+            col = spec.column if isinstance(spec, TopK) else spec.key
+            per = h.reshape(8, 4, -1).sum(axis=1 if col == "country" else 0)  # (values, P)
+            if isinstance(spec, TopK):
+                ranked = sorted(
+                    ((v, int(c)) for v, c in enumerate(per.sum(axis=1))), key=lambda vc: (-vc[1], vc[0])
+                )
+                return tuple(vc for vc in ranked if vc[1] > 0)[: spec.k]
+            return {v: inner(hp, spec.value) for v, hp in enumerate(per) if hp.sum()}
+        return inner(h.sum(axis=0), spec)
 
     def check_mask(self, pred, words: np.ndarray, start_word: int, n_words: int):
         from repro_torch.query.oracle import np_select
@@ -224,6 +305,7 @@ def check_kernels(device, widths=WIDTHS) -> int:
 
     from repro_torch.core.bitops import BitOp
     from repro_torch.kernels.mws import mws_gather, mws_gather_ref, mws_reduce, mws_reduce_ref
+    from repro_torch.kernels.mws_count import mws_count, mws_count_ref
     from repro_torch.kernels.popcount import popcount, popcount_ref
     from repro_torch.kernels.threshold import threshold_reduce, threshold_ref
 
@@ -249,7 +331,8 @@ def check_kernels(device, widths=WIDTHS) -> int:
                 stack[2] = 0  # an all-zeros row
             for op in BitOp:
                 same(mws_reduce(stack, op), mws_reduce_ref(stack, op), f"mws {op} {n}x{w}")
-                cases += 1
+                same(mws_count(stack, op), mws_count_ref(stack, op), f"mws_count {op} {n}x{w}")
+                cases += 2
             same(popcount(stack), popcount_ref(stack), f"popcount {n}x{w}")
             cases += 1
             del stack
@@ -288,6 +371,11 @@ def check_kernels(device, widths=WIDTHS) -> int:
                         f"gather {op} outer={outer_or} inv={inv} w={w}",
                     )
                     cases += 1
+    for n, w in ((1, 1), (3, 200), (48, 2048), (70, 2049)):  # the reference's test shapes
+        stack = words(n, w)
+        for op in BitOp:
+            same(mws_count(stack, op), mws_count_ref(stack, op), f"mws_count {op} {n}x{w}")
+            cases += 1
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()  # a fault during the runs surfaces here
     return cases
@@ -365,30 +453,33 @@ def check_signcomp(device, lengths=SIGN_LENGTHS + (BIG_SIGN_N,)) -> int:
 
 class Recorder:
     """Keeps the largest call of each kernel wrapper on the main path, so
-    the kernel can be timed at the shapes the path gave it."""
+    the kernel can be timed at the shapes the path gave it; calls are kept
+    per ``tag`` (the flush being served)."""
 
     def __init__(self):
         self.calls: dict[str, tuple] = {}
+        self.tag = ""
 
     def wrap(self, name, fn, size):
         def rec(*args, **kwargs):
-            best = self.calls.get(name)
+            key = name + self.tag
+            best = self.calls.get(key)
             s = size(*args, **kwargs)
             if best is None or s > best[0]:
-                self.calls[name] = (s, args, kwargs)
+                self.calls[key] = (s, args, kwargs)
             return fn(*args, **kwargs)
 
         return rec
 
 
 def check_results(queries, results, oracle, mask_sample: int = 0) -> None:
-    """Every COUNT against numpy; with ``mask_sample``, every MASK's
-    shape and three sampled word slices (start, middle, end)."""
+    """Every COUNT and aggregate against numpy; with ``mask_sample``, every
+    MASK's shape and three sampled word slices (start, middle, end)."""
     for q, r in zip(queries, results):
-        if r.count is not None:
-            want = oracle.count(q.where)
-            if r.count != want:
-                raise AssertionError(f"COUNT {q.where!r}: {r.count} != numpy {want}")
+        if r.mask is None:
+            want = oracle.answer(q)
+            if r.value != want:
+                raise AssertionError(f"{q.agg!r} of {q.where!r}: {r.value!r} != numpy {want!r}")
         elif mask_sample:
             words = np.asarray(r.value.words)
             if words.shape != (oracle.words,):
@@ -398,9 +489,59 @@ def check_results(queries, results, oracle, mask_sample: int = 0) -> None:
                 oracle.check_mask(q.where, words, start, n)
 
 
-def main_path(device, rows: int, log=log) -> dict:
+def serve_mix(q, dev, store, queries, oracle, optimize: bool, device) -> dict:
+    """Serve ``queries`` in one flush through a fresh ``BatchScheduler``:
+    a first flush (kernel launches counted from 0 just before it), then
+    TIMED_FLUSHES warm ones; every answer checked against numpy."""
     import torch
 
+    from repro_torch.kernels.mws import mws_gather
+    from repro_torch.kernels.popcount import popcount
+    from repro_torch.kernels.threshold import threshold_reduce
+
+    kernels = {"mws": mws_gather, "threshold": threshold_reduce, "popcount": popcount}
+    sched = q.BatchScheduler(dev, store, optimize=optimize, max_batch=256)
+    for fn in kernels.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    results = sched.serve(queries)
+    first_s = time.perf_counter() - t1
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    check_results(queries, results, oracle, mask_sample=4096)
+    st = sched.stats()
+    first_stats = {k: st[k] for k in _COUNTERS}
+    for k, v in launches.items():
+        if v < 1 and torch.device(device).type == "cuda":
+            raise AssertionError(f"kernel {k} never launched on the main path")
+    # warm flushes: the same batch again (a flush ends in its host
+    # transfer, so the host clock covers the device work)
+    lat = []
+    for _ in range(TIMED_FLUSHES):
+        t2 = time.perf_counter()
+        results = sched.serve(queries)
+        lat.append(time.perf_counter() - t2)
+        check_results(queries, results, oracle)
+    st = sched.stats()
+    if not st["host_transfers"] == st["fused_dispatches"] == st["flushes"]:
+        raise AssertionError(f"not one host transfer per fused flush: {st}")
+    out = {
+        "queries": len(queries),
+        "first_flush_s": first_s,
+        "warm_flush_p50_s": statistics.median(lat),
+        "qps": len(queries) * TIMED_FLUSHES / sum(lat),
+        "launches_first_flush": launches,
+        "host_transfers_per_flush": st["host_transfers"] / st["flushes"],
+        "stats": first_stats,  # counters of the first flush
+    }
+    if torch.device(device).type == "cuda":
+        out["profile"] = profile_flush(sched, queries)
+    return out
+
+
+def main_path(device, rows: int, log=log) -> dict:
+    """FlashQL on the card: the COUNT/MASK flush of build_queries, then the
+    same flush with build_aggregates beside it, each with the optimizer on
+    and off."""
     from repro_torch import query as q
     from repro_torch.kernels.mws import mws_gather
     from repro_torch.kernels.popcount import popcount
@@ -413,13 +554,15 @@ def main_path(device, rows: int, log=log) -> dict:
     store = q.BitmapStore()
     store.ingest(table)
     queries = build_queries(q, SEED)
+    mixed = queries + build_aggregates(q, SEED)
     dev = q.FlashDevice(num_planes=4, device=device)
     store.program(dev, warmup=queries[:3])
     dev.store.snapshot(dev.device)
     oracle = Oracle(table, store.words)
     log(
         f"ingest+program: {rows} rows, {store.words} words/page, "
-        f"{dev.store.num_slots} slots, {time.perf_counter() - t0:.3f} s"
+        f"{dev.store.num_slots} slots, price: {len(oracle.points)} points, "
+        f"{store.columns['price'].bits} BSI slices, {time.perf_counter() - t0:.3f} s"
     )
 
     # record the largest launch of each kernel on the path
@@ -436,49 +579,19 @@ def main_path(device, rows: int, log=log) -> dict:
     out = {"rows": rows, "words": store.words}
     try:
         for name, optimize in (("optimize", True), ("plain", False)):
-            sched = q.BatchScheduler(dev, store, optimize=optimize, max_batch=256)
-            for fn in (mws_gather, threshold_reduce, popcount):
-                fn.launches = 0
-            t1 = time.perf_counter()
-            results = sched.serve(queries)
-            first_s = time.perf_counter() - t1
-            check_results(queries, results, oracle, mask_sample=4096)
-            launches = {
-                "mws": mws_gather.launches,
-                "threshold": threshold_reduce.launches,
-                "popcount": popcount.launches,
-            }
-            st = sched.stats()
-            if not st["host_transfers"] == st["fused_dispatches"] == st["flushes"]:
-                raise AssertionError(f"not one host transfer per fused flush: {st}")
-            for k, v in launches.items():
-                if v < 1 and torch.device(device).type == "cuda":
-                    raise AssertionError(f"kernel {k} never launched on the main path ({name})")
-            # warm flushes: the same batch again (a flush ends in its host
-            # transfer, so the host clock covers the device work)
-            lat = []
-            for _ in range(TIMED_FLUSHES):
-                t2 = time.perf_counter()
-                results = sched.serve(queries)
-                lat.append(time.perf_counter() - t2)
-                check_results(queries, results, oracle)
-            p50 = statistics.median(lat)
-            qps = len(queries) * TIMED_FLUSHES / sum(lat)
-            out[name] = {
-                "first_flush_s": first_s,
-                "warm_flush_p50_s": p50,
-                "qps": qps,
-                "launches_first_flush": launches,
-                "stats": {k: st[k] for k in _COUNTERS},
-            }
-            log(
-                f"main path [{name}]: {len(queries)} queries/flush, first flush "
-                f"{first_s:.4f} s, warm flush p50 {p50 * 1e3:.3f} ms "
-                f"({qps:.1f} q/s over {TIMED_FLUSHES} flushes), launches per flush {launches}"
-            )
-            if torch.device(device).type == "cuda":
-                out[name]["profile"] = profile_flush(sched, queries)
-                log(f"  one warm flush under torch.profiler [{name}]: {out[name]['profile']}")
+            for mix, qs, tag in (("count_mask", queries, ""), ("aggregates", mixed, "_aggregates")):
+                rec.tag = tag
+                r = serve_mix(q, dev, store, qs, oracle, optimize, device)
+                out[f"{name}{tag}"] = r
+                log(
+                    f"main path [{name}, {mix}]: {r['queries']} queries/flush, first flush "
+                    f"{r['first_flush_s']:.4f} s, warm flush p50 {r['warm_flush_p50_s'] * 1e3:.3f} ms "
+                    f"({r['qps']:.1f} q/s over {TIMED_FLUSHES} flushes), launches per flush "
+                    f"{r['launches_first_flush']}, host transfers per flush "
+                    f"{r['host_transfers_per_flush']}"
+                )
+                if "profile" in r:
+                    log(f"  one warm flush under torch.profiler [{name}, {mix}]: {r['profile']}")
     finally:
         dev_mod.mws_gather, dev_mod.threshold_reduce, agg_mod.popcount = orig
     out["recorded"] = rec.calls
@@ -528,6 +641,9 @@ def profile_flush(sched, queries) -> dict:
 
 
 def kernel_report(recorded: dict, launches: dict, card: str) -> list[dict]:
+    """mws, threshold and popcount at the largest shapes the COUNT/MASK
+    flush gave them, and popcount at the largest (rows, W) of the flush
+    with aggregates; ``launches`` per kernel in one first flush."""
     import torch
 
     from repro_torch.kernels.mws import mws_gather, mws_gather_ref
@@ -536,7 +652,7 @@ def kernel_report(recorded: dict, launches: dict, card: str) -> list[dict]:
 
     bw = hbm_rate(card)
     rows = []
-    for name in ("mws", "threshold", "popcount"):
+    for name in ("mws", "threshold", "popcount", "popcount_aggregates"):
         _, args, kwargs = recorded[name]
         if name == "mws":
             src, idx = args[0], args[1]
@@ -621,7 +737,106 @@ def kernel_row(name, kern, plain, launches, bytes_min, ops, bw, shape, **extra) 
     }
 
 
-# -- phase 5: the training path -------------------------------------------------
+# -- phase 5: the one-pass BMI count at the paper's size ------------------------
+
+
+def bmi_path(device, words: int, days=BMI_DAYS, card: str | None = None, log=log) -> dict:
+    """The paper's BMI query, "how many users were active on every one of
+    the last d days", for each d in ``days`` over ``words`` words (32
+    users each) per day, through the public ``mws_count``.
+
+    The year's day stack is made on ``device`` from the seed: random
+    activity plus a "loyal users" mask of about 1/8 density active every
+    day, so the AND keeps about an eighth of the users.  The d-day stack is
+    the last d rows.  Launch counts are set to 0 just before the counts and
+    read just after; each count is then held against the plain version,
+    against mws + popcount, and against the loyal users it must contain.
+    With ``card``, B4, its plain version and mws + popcount are timed at
+    each d and the kernels line's row is built at the largest.
+    """
+    import torch
+
+    from repro_torch.core.bitops import BitOp
+    from repro_torch.kernels.mws import mws_gather, mws_reduce
+    from repro_torch.kernels.mws_count import mws_count, mws_count_ref
+    from repro_torch.kernels.popcount import popcount, popcount_ref
+
+    on_card = torch.device(device).type == "cuda"
+    resident = torch.cuda.memory_allocated() if on_card else 0
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 6)
+
+    def rand():
+        return torch.randint(-(2**31), 2**31, (words,), generator=g, dtype=torch.int32, device=device)
+
+    t0 = time.perf_counter()
+    loyal = rand() & rand() & rand()
+    loyal_users = int(popcount_ref(loyal[None])[0])
+    n_days = max(days)
+    year = torch.empty((n_days, words), dtype=torch.int32, device=device)
+    for d in range(n_days):
+        torch.bitwise_or(rand(), loyal, out=year[d])
+    del loyal
+    stacks = {d: year[n_days - d :] for d in days}
+    if on_card:
+        torch.cuda.synchronize()
+    log(
+        f"BMI stacks: {32 * words} users, {n_days} days x {words} words "
+        f"({year.numel() * 4} bytes), {loyal_users} loyal users, {resident} bytes "
+        f"resident before, {time.perf_counter() - t0:.2f} s"
+    )
+
+    kernels = {"mws_count": mws_count, "mws": mws_gather, "popcount": popcount}
+    for fn in kernels.values():
+        fn.launches = 0
+    counts = {d: int(mws_count(stacks[d], BitOp.AND)) for d in days}
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    if on_card and launches != {"mws_count": len(days), "mws": 0, "popcount": 0}:
+        raise AssertionError(f"the BMI count launched {launches}, not mws_count once per window")
+    for d in days:
+        plain = int(mws_count_ref(stacks[d], BitOp.AND))
+        b1b2 = int(popcount(mws_reduce(stacks[d], BitOp.AND)))
+        if not counts[d] == plain == b1b2:
+            raise AssertionError(f"BMI count d={d}: mws_count {counts[d]}, plain {plain}, mws+popcount {b1b2}")
+        if counts[d] < loyal_users:
+            raise AssertionError(f"BMI count d={d}: {counts[d]} < {loyal_users} loyal users")
+    ordered = [counts[d] for d in sorted(days)]
+    if ordered != sorted(ordered, reverse=True):
+        raise AssertionError(f"a longer window counts more users: {counts}")
+    out = {"users": 32 * words, "counts": counts, "loyal_users": loyal_users, "launches": launches}
+    log(f"BMI one-pass count: {counts} (loyal users {loyal_users}), launches {launches}")
+    if card is not None:
+        bw = hbm_rate(card)
+        windows = {}
+        for d in days:
+            s = stacks[d]
+            windows[d] = {
+                "count": counts[d],
+                "ms": time_ms(lambda: mws_count(s, BitOp.AND), KERNEL_REPS),
+                "plain_ms": time_ms(lambda: mws_count_ref(s, BitOp.AND), 3),
+                "b1_b2_ms": time_ms(lambda: popcount(mws_reduce(s, BitOp.AND)), KERNEL_REPS),
+                "bound_ms": (d * words * 4 + 4) / bw * 1e3,
+                "b1_b2_bound_ms": ((d + 2) * words * 4 + 4) / bw * 1e3,
+            }
+            log(f"  BMI d={d}: {windows[d]}")
+        s = stacks[n_days]
+        out["row"] = kernel_row(
+            "mws_count",
+            lambda: mws_count(s, BitOp.AND),
+            lambda: mws_count_ref(s, BitOp.AND),
+            launches["mws_count"],
+            n_days * words * 4 + 4,
+            n_days * words,  # one logic op per word read; the popcounts are W more
+            bw,
+            f"stack ({n_days}, {words}) AND -> ()",
+            b1_b2_ms=windows[n_days]["b1_b2_ms"],
+            windows=windows,
+        )
+    del year, stacks
+    return out
+
+
+# -- phase 6: the training path -------------------------------------------------
 
 _MATMUL_KEYS = ("gemm", "xmma", "nvjet", "cutlass", "cublas", "matmul")
 _SIGNCOMP_KEYS = ("pack_signs_kernel", "unpack_signs_kernel")
@@ -771,7 +986,7 @@ def train_path(device, cfg, log=log) -> dict:
     return out
 
 
-# -- phase 6: the sign kernels at the training path's largest leaf ---------------
+# -- phase 7: the sign kernels at the training path's largest leaf ---------------
 
 
 def signcomp_report(n: int, train: dict, card: str) -> list[dict]:
@@ -825,7 +1040,7 @@ def signcomp_report(n: int, train: dict, card: str) -> list[dict]:
     return rows
 
 
-# -- phase 7: majority votes at the largest leaf's layout --------------------------
+# -- phase 8: majority votes at the largest leaf's layout --------------------------
 
 
 def majority_phase(n: int, card: str) -> dict:
@@ -916,9 +1131,10 @@ def main() -> int:
 
     log(json.dumps({"reduced": {"rows": [PAPER_ROWS, ROWS], "why": "the smoke's time limit"}}))
     res = main_path("cuda", ROWS)
-    report = kernel_report(
-        res["recorded"], res["optimize"]["launches_first_flush"], kind
-    )
+    launches = res["optimize"]["launches_first_flush"] | {
+        "popcount_aggregates": res["optimize_aggregates"]["launches_first_flush"]["popcount"]
+    }
+    report = kernel_report(res["recorded"], launches, kind)
     for r in report:
         log(
             f"kernel {r['name']}: {r['ms']:.4f} ms at {r['shape']}, plain "
@@ -926,12 +1142,21 @@ def main() -> int:
             f"{r['launches']} launches per flush"
         )
     del res["recorded"]
-    summary = {
-        k: {kk: vv for kk, vv in res[k].items() if kk != "stats"} | {"stats": res[k]["stats"]}
-        for k in ("optimize", "plain")
-    }
+    summary = {k: v for k, v in res.items() if isinstance(v, dict)}
     log(json.dumps({"main_path": summary, "rows": ROWS, "words": res["words"], "card": card_line}))
     del res
+    # the 365-day stack (36.5 GB) needs the card to itself: nothing of the
+    # FlashQL phases stays resident, and training starts after it is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bmi = bmi_path("cuda", PAPER_ROWS // 32, card=kind)
+    report.append(bmi.pop("row"))
+    log(json.dumps({"bmi_path": bmi, "card": card_line}))
+    log(f"BMI path: {time.perf_counter() - t0:.1f} s")
+    del bmi
+    gc.collect()
     torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config

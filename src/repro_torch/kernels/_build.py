@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("mws.cu", "popcount.cu", "threshold.cu", "signcomp.cu")
+SOURCES = ("mws.cu", "popcount.cu", "threshold.cu", "signcomp.cu", "mws_count.cu")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -45,6 +45,8 @@ _SIGNATURES = {
     "mws_gather_launch": (_P,) * 5 + (_I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
     # (x, out, R, W, vec, stream)
     "popcount_launch": (_P, _P, _I, _L, _I, _P),
+    # (x, out, N, W, op, invert, vec, stream)
+    "mws_count_launch": (_P, _P, _L, _L, _I, _I, _I, _P),
     # (x, out, B, n, W, k, invert, vec, stream)
     "threshold_launch": (_P, _P, _I, _I, _L, _I, _I, _I, _P),
     # (x or words, out, n, R, W, vec, stream)

@@ -1,12 +1,12 @@
 """FlashQL on PyTorch: the batched bitmap-index query-serving subsystem.
 
-The port's mirror of ``repro.query`` (COUNT and MASK serving through
-:class:`BatchScheduler` on one device).  Sharded serving, mutations and
-the other aggregates are later slices (see ROADMAP.md).
+The port's mirror of ``repro.query``: serving through
+:class:`BatchScheduler` on one device, with every aggregate (COUNT, MASK,
+SUM, AVG, MIN, MAX, TOP-K, GROUP BY).  Sharded serving and mutations are
+later slices (see ROADMAP.md).
 
 * :mod:`repro_torch.query.ast` — the predicate AST and aggregate specs;
-* :mod:`repro_torch.query.aggregate` — the aggregation pipeline (COUNT,
-  MASK);
+* :mod:`repro_torch.query.aggregate` — the aggregation pipeline;
 * :mod:`repro_torch.query.bitmap` — ``BitmapStore``: ingests columnar
   tables into equality bitmaps and bit-sliced range indexes;
 * :mod:`repro_torch.query.compile` — lowering, the plan cache, and the

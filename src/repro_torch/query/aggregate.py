@@ -6,22 +6,31 @@ An :class:`Aggregator` declares
   and/or equality bitmaps of its target column, fetched through
   :func:`repro_torch.query.bitmap.fetch_pages`;
 * **a batched device-side reduce** (:meth:`Aggregator.batch_reduce`) — one
-  popcount kernel launch over the stacked result bitmaps of a flush;
-* **a shard-merge rule** (:meth:`Aggregator.merge`).
+  (weighted-)popcount over the stacked result bitmaps of a flush:
+  ``SUM = Σ_b 2^b · popcount(mask ∧ slice_b)``, ``MIN``/``MAX`` walk the
+  slices MSB→LSB narrowing a candidate mask, ``AVG = SUM / COUNT``, and
+  ``TOP-K`` / ``GROUP BY`` count per-group masks from the equality bitmaps;
+* **a shard-merge rule** (:meth:`Aggregator.merge`) — sum partials, take
+  the min/max, merge count vectors, or un-stripe bitmaps.
 
-This slice of the port serves ``COUNT`` and ``MASK``.  SUM/AVG/MIN/MAX/
-TOP-K/GROUP BY are a later slice (ROADMAP A5): asking for one raises
-``NotImplementedError`` at ``submit()``, before a flush can be poisoned.
+``COUNT`` and ``MASK`` are trivial instances of the same interface.  The
+intersections (``mask ∧ page``) and the MIN/MAX walk are plain torch ops;
+every popcount goes through :func:`repro_torch.kernels.popcount.popcount`,
+so on the card one popcount kernel launch covers a whole reduce group.
 :func:`reduce_flush` is the per-group driver of the legacy flush path: it
 groups a flush's members by *reduce signature* (aggregator kind + static
-shapes) and costs one kernel launch and one host transfer per group.
+shapes) and costs one reduce and one host transfer per group.
+
+Exact-integer guarantee: the device only ever produces popcounts (int32);
+the 2^b weighting happens host-side in Python integers, so SUM and the AVG
+numerator are exact at any bit width.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Iterable, Mapping
 
 import numpy as np
 import torch
@@ -42,7 +51,86 @@ from repro_torch.query.ast import (
     columns_of,
     normalize_agg,
 )
-from repro_torch.query.bitmap import BitmapStore, fetch_pages
+from repro_torch.query.bitmap import BitmapStore, bsi_pages, eq_pages, fetch_pages
+
+# -- batched reduces ---------------------------------------------------------
+
+
+def sliced_counts(masks: torch.Tensor, extras: torch.Tensor) -> torch.Tensor:
+    """``(B, P)`` popcounts of ``mask ∧ page`` for every member × page:
+    one intersection and ONE batched popcount over ``(B·P, W)`` rows."""
+    b, p, w = extras.shape
+    inter = masks[:, None, :] & extras
+    return popcount(inter.reshape(b * p, w)).reshape(b, p)
+
+
+def sliced_counts_with_total(masks: torch.Tensor, extras: torch.Tensor) -> torch.Tensor:
+    """``(B, P+1)``: per-slice popcounts plus the plain mask popcount in
+    the last column (AVG's numerator slices and denominator, one launch)."""
+    aug = torch.cat([extras, masks[:, None, :]], dim=1)
+    return sliced_counts(masks, aug)
+
+
+def bsi_extreme(
+    masks: torch.Tensor, extras: torch.Tensor, *, maximize: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bit-sliced MIN/MAX walk over ``(B, bits, W)`` BSI slices.
+
+    MSB→LSB, a candidate mask narrows to the rows still extremal: for MAX,
+    if any candidate has bit b set, the extremum does too and candidates
+    without it drop out; MIN walks the complemented slice.  Returns the
+    per-bit decisions ``(B, bits)`` (LSB first) and a per-member non-empty
+    flag — the host assembles the exact integer, so any bit width works.
+    """
+    bits = extras.shape[1]
+    cand = masks
+    decisions = []
+    for b in range(bits - 1, -1, -1):
+        sl = extras[:, b, :]
+        # cand has no padding bits (masks are validity-masked), so the
+        # complement's padding ones never enter the candidate set
+        t = cand & (sl if maximize else ~sl)
+        nz = (t != 0).any(dim=-1)
+        cand = torch.where(nz[:, None], t, cand)
+        decisions.append(nz if maximize else ~nz)
+    dec = torch.stack(decisions[::-1], dim=1)
+    return dec, (masks != 0).any(dim=-1)
+
+
+def pervalue_counts(masks: torch.Tensor, extras: torch.Tensor, *, groups: int, bits: int):
+    """Per-group popcounts for TOP-K / GROUP BY.
+
+    ``extras`` stacks ``groups`` equality bitmaps then ``bits`` BSI slices
+    of the inner-aggregate column (``bits == 0`` for plain counts).  Group
+    counts and per-(group, slice) counts run as ONE batched popcount over
+    ``(B·G + B·G·bits, W)`` rows.
+    """
+    b, _, w = extras.shape
+    gm = masks[:, None, :] & extras[:, :groups, :]  # (B, G, W)
+    if not bits:
+        return popcount(gm.reshape(b * groups, w)).reshape(b, groups)
+    sl = extras[:, groups:, :]
+    inter = gm[:, :, None, :] & sl[:, None, :, :]  # (B, G, bits, W)
+    rows = torch.cat([gm.reshape(b * groups, w), inter.reshape(b * groups * bits, w)])
+    counts = popcount(rows)
+    return (
+        counts[: b * groups].reshape(b, groups),
+        counts[b * groups :].reshape(b, groups, bits),
+    )
+
+
+def _weighted(counts: Iterable) -> int:
+    """Exact Σ 2^b · count_b in Python integers (LSB first)."""
+    return sum(int(c) << b for b, c in enumerate(counts))
+
+
+def payload_words(out) -> list[torch.Tensor]:
+    """The flat int32 pieces of one reduce's output leaves (a tensor or a
+    tuple of them): counts and MASK words as they are, MIN/MAX's bool
+    leaves as 32-bit 0/1 — the layout :func:`unpack_group` reads back."""
+    leaves = out if isinstance(out, tuple) else (out,)
+    return [leaf.reshape(-1).to(torch.int32) for leaf in leaves]
+
 
 # -- the interface -----------------------------------------------------------
 
@@ -110,6 +198,17 @@ class Aggregator:
     def merge(self, parts: dict[int, object], sstore) -> object:
         """Shard partials -> final value (``sstore``: a sharded store)."""
         raise NotImplementedError
+
+    # -- helpers
+    def _column(self) -> str:
+        return self.spec.column
+
+    def _require(self, columns: Mapping[str, object], name: str) -> None:
+        if name not in columns:
+            raise KeyError(f"unknown aggregate column {name!r} for {self.kind.upper()}")
+
+    def _first_store(self, parts: dict[int, object], sstore) -> BitmapStore:
+        return sstore.shards[next(iter(parts))]
 
 
 class CountAggregator(Aggregator):
@@ -189,12 +288,243 @@ def merge_mask_batch(parts_list, sstore) -> list:
     return [BitVector(packed[t], sstore.num_rows) for t in range(t_count)]
 
 
+class SumAggregator(Aggregator):
+    kind = "sum"
+
+    def validate(self, columns):
+        self._require(columns, self._column())
+
+    def extra_pages(self, store):
+        return bsi_pages(store, self._column())
+
+    def reduce_sig(self, store):
+        return (store.columns[self._column()].bits,)
+
+    def batch_reduce(self, masks, extras, sig):
+        return sliced_counts(masks, extras)
+
+    def payload_leaves(self, sig, b, w):
+        return (((b, sig[0]), np.int64),)
+
+    def member_partial(self, host, j):
+        return host[j]  # (bits,) per-slice popcounts
+
+    def empty_partial(self, store):
+        return np.zeros((store.columns[self._column()].bits,), np.int64)
+
+    def finalize(self, partial, store):
+        return _weighted(partial)
+
+    def merge(self, parts, sstore):
+        return sum(_weighted(p) for p in parts.values())
+
+
+class AvgAggregator(SumAggregator):
+    kind = "avg"
+
+    def batch_reduce(self, masks, extras, sig):
+        return sliced_counts_with_total(masks, extras)
+
+    def payload_leaves(self, sig, b, w):
+        return (((b, sig[0] + 1), np.int64),)
+
+    def member_partial(self, host, j):
+        return host[j]  # (bits + 1,): slice popcounts + row count
+
+    def empty_partial(self, store):
+        return np.zeros((store.columns[self._column()].bits + 1,), np.int64)
+
+    def finalize(self, partial, store):
+        count = int(partial[-1])
+        if not count:
+            return None
+        return _weighted(partial[:-1]) / count
+
+    def merge(self, parts, sstore):
+        total = np.sum(
+            np.stack([np.asarray(p) for p in parts.values()]), axis=0, dtype=np.int64
+        )
+        return self.finalize(total, self._first_store(parts, sstore))
+
+
+class ExtremeAggregator(Aggregator):
+    """Shared MIN/MAX implementation (the walk differs by one flag)."""
+
+    maximize = False
+
+    def validate(self, columns):
+        self._require(columns, self._column())
+
+    def extra_pages(self, store):
+        return bsi_pages(store, self._column())
+
+    def reduce_sig(self, store):
+        return (store.columns[self._column()].bits, self.maximize)
+
+    def batch_reduce(self, masks, extras, sig):
+        # maximize comes from sig (not self.spec) so the fused flush
+        # program can run this reduce from the group key alone
+        return bsi_extreme(masks, extras, maximize=sig[1])
+
+    def payload_leaves(self, sig, b, w):
+        return (((b, sig[0]), np.bool_), ((b,), np.bool_))
+
+    def member_partial(self, host, j):
+        dec, nonempty = host
+        return (np.asarray(dec[j]), bool(nonempty[j]))
+
+    def empty_partial(self, store):
+        bits = store.columns[self._column()].bits
+        return (np.zeros((bits,), bool), False)
+
+    def finalize(self, partial, store):
+        dec, nonempty = partial
+        if not nonempty:
+            return None
+        return _weighted(dec)
+
+    def merge(self, parts, sstore):
+        store = self._first_store(parts, sstore)
+        vals = [v for v in (self.finalize(p, store) for p in parts.values()) if v is not None]
+        if not vals:
+            return None
+        return max(vals) if self.maximize else min(vals)
+
+
+class MinAggregator(ExtremeAggregator):
+    kind = "min"
+    maximize = False
+
+
+class MaxAggregator(ExtremeAggregator):
+    kind = "max"
+    maximize = True
+
+
+class PerValueAggregator(Aggregator):
+    """Shared TOP-K / GROUP BY machinery: per-group masks from the target
+    column's equality bitmaps, reduced to per-group (count[, slice-count])
+    vectors that merge across shards by elementwise sum — the global
+    schema aligns value order on every shard."""
+
+    def _key_column(self) -> str:
+        raise NotImplementedError
+
+    def _inner_bits_column(self) -> str | None:
+        return None  # BSI slices of the inner SUM/AVG column, if any
+
+    def extra_pages(self, store):
+        pages = eq_pages(store, self._key_column())
+        inner = self._inner_bits_column()
+        if inner is not None:
+            pages += bsi_pages(store, inner)
+        return pages
+
+    def reduce_sig(self, store):
+        groups = len(store.columns[self._key_column()].values)
+        inner = self._inner_bits_column()
+        bits = store.columns[inner].bits if inner is not None else 0
+        return (groups, bits)
+
+    def batch_reduce(self, masks, extras, sig):
+        groups, bits = sig
+        return pervalue_counts(masks, extras, groups=groups, bits=bits)
+
+    def payload_leaves(self, sig, b, w):
+        groups, bits = sig
+        if not bits:
+            return (((b, groups), np.int64),)
+        return (((b, groups), np.int64), ((b, groups, bits), np.int64))
+
+    def member_partial(self, host, j):
+        if isinstance(host, tuple):
+            return (host[0][j], host[1][j])
+        return host[j]
+
+    def empty_partial(self, store):
+        groups = len(store.columns[self._key_column()].values)
+        inner = self._inner_bits_column()
+        if inner is None:
+            return np.zeros((groups,), np.int64)
+        bits = store.columns[inner].bits
+        return (np.zeros((groups,), np.int64), np.zeros((groups, bits), np.int64))
+
+    def merge(self, parts, sstore):
+        vals = list(parts.values())
+        if isinstance(vals[0], tuple):
+            total = tuple(
+                np.sum(np.stack([np.asarray(v[i]) for v in vals]), axis=0, dtype=np.int64)
+                for i in range(2)
+            )
+        else:
+            total = np.sum(np.stack([np.asarray(v) for v in vals]), axis=0, dtype=np.int64)
+        return self.finalize(total, self._first_store(parts, sstore))
+
+
+class TopKAggregator(PerValueAggregator):
+    kind = "topk"
+
+    def validate(self, columns):
+        self._require(columns, self.spec.column)
+        if self.spec.k < 1:
+            raise ValueError(f"TopK needs k >= 1, got {self.spec.k}")
+
+    def _key_column(self):
+        return self.spec.column
+
+    def finalize(self, partial, store):
+        values = store.columns[self.spec.column].values
+        ranked = sorted(
+            ((v, int(c)) for v, c in zip(values, partial)),
+            key=lambda vc: (-vc[1], vc[0]),
+        )
+        return tuple((v, c) for v, c in ranked if c > 0)[: self.spec.k]
+
+
+class GroupByAggregator(PerValueAggregator):
+    kind = "groupby"
+
+    def validate(self, columns):
+        self._require(columns, self.spec.key)
+        inner = self.spec.value
+        if not isinstance(inner, (Count, Sum, Avg)):
+            raise TypeError(f"GroupBy value must be Count/Sum/Avg, got {inner!r}")
+        if isinstance(inner, (Sum, Avg)):
+            self._require(columns, inner.column)
+
+    def _key_column(self):
+        return self.spec.key
+
+    def _inner_bits_column(self):
+        inner = self.spec.value
+        return inner.column if isinstance(inner, (Sum, Avg)) else None
+
+    def finalize(self, partial, store):
+        values = store.columns[self.spec.key].values
+        inner = self.spec.value
+        if isinstance(inner, Count):
+            return {v: int(c) for v, c in zip(values, partial) if int(c) > 0}
+        counts, slices = partial
+        out = {}
+        for g, v in enumerate(values):
+            c = int(counts[g])
+            if not c:
+                continue
+            num = _weighted(slices[g])
+            out[v] = num / c if isinstance(inner, Avg) else num
+        return out
+
+
 _AGGREGATORS: dict[type, type[Aggregator]] = {
     Count: CountAggregator,
     Mask: MaskAggregator,
+    Sum: SumAggregator,
+    Avg: AvgAggregator,
+    Min: MinAggregator,
+    Max: MaxAggregator,
+    TopK: TopKAggregator,
+    GroupBy: GroupByAggregator,
 }
-# specs whose aggregators are a later slice of the port
-_NOT_PORTED = (Sum, Avg, Min, Max, TopK, GroupBy)
 
 # spec-less instances for kind-keyed dispatch (see Aggregator.batch_reduce)
 _BY_KIND: dict[str, Aggregator] = {
@@ -244,11 +574,6 @@ def get_aggregator(agg) -> Aggregator:
     spec = normalize_agg(agg)
     cls = _AGGREGATORS.get(type(spec))
     if cls is None:
-        if isinstance(spec, _NOT_PORTED):
-            raise NotImplementedError(
-                f"{type(spec).__name__} is not ported to repro_torch yet "
-                "(ROADMAP A5: the remaining aggregates); COUNT and MASK are"
-            )
         raise TypeError(f"no aggregator registered for {spec!r}")
     return cls(spec)
 
@@ -381,9 +706,9 @@ def reduce_flush(
         )
         for i, c in counts.items():
             extra_counts[i] = c
-        flat = a0.batch_reduce(sub, extras, sig).reshape(-1).cpu().numpy()
+        flat = torch.cat(payload_words(a0.batch_reduce(sub, extras, sig)))
         host = unpack_group(
-            flat.view(np.uint32),
+            flat.cpu().numpy().view(np.uint32),
             a0.payload_leaves(sig, len(members), masked.shape[1]),
         )
         for j, i in enumerate(members):

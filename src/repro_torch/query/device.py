@@ -317,7 +317,7 @@ def make_flush_runner(key: tuple):
     :func:`repro_torch.query.aggregate.unpack_group`): one host transfer
     per flush, however many groups and aggregate kinds it mixes.
     """
-    from repro_torch.query.aggregate import kind_reduce
+    from repro_torch.query.aggregate import kind_reduce, payload_words
 
     sense, reduce_sigs, w, cse = key
     group_fns = [plan_step_fn(psig) for psig, _n in sense]
@@ -340,9 +340,7 @@ def make_flush_runner(key: tuple):
         parts = []
         for (kind, sig, _n, _p), sel, ex in zip(reduce_sigs, sels, extras):
             sub = masked if sel is None else masked[sel]
-            out = kind_reduce(kind, sub, ex, sig)
-            leaves = out if isinstance(out, tuple) else (out,)
-            parts.extend(leaf.reshape(-1).to(torch.int32) for leaf in leaves)
+            parts.extend(payload_words(kind_reduce(kind, sub, ex, sig)))
         return torch.cat(parts)
 
     return run

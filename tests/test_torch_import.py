@@ -45,6 +45,7 @@ def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.query.scheduler" in mods and "repro_torch.kernels.mws.ops" in mods
     assert "repro_torch.train.trainer" in mods and "repro_torch.kernels.signcomp.ops" in mods
+    assert "repro_torch.kernels.mws_count.ops" in mods
     _import_in_subprocess(mods)
 
 

@@ -160,11 +160,6 @@ def test_load_reference_state_serves_identically():
 def test_unported_surfaces_raise_naming_the_roadmap():
     store, dev = _deploy(T, _table(), device="cpu")
     sched = T.BatchScheduler(dev, store)
-    for agg in (T.Sum("age"), T.Avg("age"), T.Min("age"), T.Max("age"), T.TopK("country", 2),
-                T.GroupBy("country", T.Count())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            sched.submit(T.Query(T.Eq("country", 1), agg=agg))
-    assert sched.pending == 0
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         sched.append({"country": [1], "age": [20], "device": [0]})
     for call in (lambda: sched.delete([0]), lambda: sched.update([0], {}), sched.compact):
