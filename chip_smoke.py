@@ -63,6 +63,7 @@ _OPS_PER_S = 67e12
 
 REPLACES = {
     "mws": "src/repro/kernels/mws/mws.py:89",
+    "mws_optimizer_off": "src/repro/kernels/mws/mws.py:89",
     "popcount": "src/repro/kernels/popcount/popcount.py:54",
     "popcount_aggregates": "src/repro/kernels/popcount/popcount.py:54",
     "mws_count": "src/repro/kernels/mws_count/mws_count.py:84",
@@ -73,6 +74,7 @@ REPLACES = {
 }
 SOURCES = {
     "mws": "src/repro_torch/csrc/mws.cu",
+    "mws_optimizer_off": "src/repro_torch/csrc/mws.cu",
     "popcount": "src/repro_torch/csrc/popcount.cu",
     "popcount_aggregates": "src/repro_torch/csrc/popcount.cu",
     "mws_count": "src/repro_torch/csrc/mws_count.cu",
@@ -272,13 +274,23 @@ class Oracle:
 
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
-    with CUDA events around the whole run."""
+    with CUDA events around the whole run.  The card first sleeps for
+    longer than the host takes to enqueue the runs, so the window holds
+    the device's time only: a wrapper's host overhead (tens of
+    microseconds) would otherwise count against a kernel that takes ten.
+    A ``fn`` that waits for the card inside (the plain versions) still
+    counts its host time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2e9 * (2 * reps * host_s + 1e-3), 4e9)))  # cycles, about 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -296,7 +308,49 @@ def hbm_rate(name: str) -> float:
 # -- phase 2: every kernel against its plain version --------------------------
 
 
-WIDTHS = (1, 127, 2049, 4_194_304)
+WIDTHS = (1, 127, 2049, 4100, 4_194_304)
+GRID_LIMIT_WIDTH = 4100  # the widest W of the B*K = 65,535 staged cases
+
+
+def staged_cases(w: int, words, device) -> list:
+    """Launches that B1's wrapper sends to its staged variant, at width
+    ``w``: many plans over few rows; every slot and shared row named, at
+    the stages' capacity; spill and shared rows together; and, for W up
+    to GRID_LIMIT_WIDTH, B*K at the launch grid's limit.  Each is
+    ``(label, src, idx, ext, shr, outer_or values)``."""
+    import torch
+
+    from repro_torch.kernels.mws.ops import _MAX_GRID_Y, staged_fits
+
+    g = np.random.default_rng(w)
+
+    def ix(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
+
+    cases = [("few rows", words(9, w), ix(g.choice([0, 4, 7], (40, 2, 2))), None, None, (True, False))]
+    m_shr = 3
+    S = max(s for s in range(1, 512) if staged_fits(s, m_shr, 1 << 20, 4))
+    names = S + m_shr
+    B = names // 4 + 2
+    every = np.concatenate([np.arange(S), -1 - np.arange(m_shr)])
+    idx = g.integers(-m_shr, S, B * 4)
+    idx[: every.size] = g.permutation(every)
+    cases.append(("capacity", words(S, w), ix(idx.reshape(B, 2, 2)), None, words(m_shr, w), (True, False)))
+    cases.append(
+        (
+            "ext+shr",
+            words(9, w),
+            ix(g.integers(-5, 9, (30, 2, 3))),
+            words(30, 2, w),
+            words(3, w),
+            (True, False),
+        )
+    )
+    if w <= GRID_LIMIT_WIDTH:
+        cases.append(("grid limit", words(9, w), ix(g.integers(0, 9, (_MAX_GRID_Y // 5, 5, 1))), None, None, (False,)))
+        cases.append(("grid limit", words(9, w), ix(g.integers(0, 9, (_MAX_GRID_Y, 1, 2))), None, None, (True,)))
+    return cases
+
 
 
 def check_kernels(device, widths=WIDTHS) -> int:
@@ -305,10 +359,12 @@ def check_kernels(device, widths=WIDTHS) -> int:
 
     from repro_torch.core.bitops import BitOp
     from repro_torch.kernels.mws import mws_gather, mws_gather_ref, mws_reduce, mws_reduce_ref
+    from repro_torch.kernels.mws.ops import choose_variant
     from repro_torch.kernels.mws_count import mws_count, mws_count_ref
     from repro_torch.kernels.popcount import popcount, popcount_ref
     from repro_torch.kernels.threshold import threshold_reduce, threshold_ref
 
+    on_card = torch.device(device).type == "cuda"
     g = torch.Generator(device=device)
     g.manual_seed(SEED)
 
@@ -371,20 +427,40 @@ def check_kernels(device, widths=WIDTHS) -> int:
                         f"gather {op} outer={outer_or} inv={inv} w={w}",
                     )
                     cases += 1
+        # B1's staged variant
+        for label, src, idx, ext, shr, outer in staged_cases(w, words, device):
+            B, K, N = idx.shape
+            m_ext = 0 if ext is None else ext.shape[1]
+            m_shr = 0 if shr is None else shr.shape[0]
+            if any(choose_variant(src.shape[0], B, K, N, m_ext, m_shr, o) != "staged" for o in outer):
+                raise AssertionError(f"staged case {label} w={w} would not run staged")
+            for op in (BitOp.AND, BitOp.OR, BitOp.XOR):
+                for outer_or in outer:
+                    kw = dict(outer_or=outer_or, invert=op is BitOp.OR, ext=ext, shr=shr)
+                    before = mws_gather.variant_launches["staged"]
+                    same(
+                        mws_gather(src, idx, op, **kw),
+                        mws_gather_ref(src, idx, op, **kw),
+                        f"staged {label} {op} outer={outer_or} w={w}",
+                    )
+                    if on_card and mws_gather.variant_launches["staged"] != before + 1:
+                        raise AssertionError(f"staged case {label} w={w} did not launch staged")
+                    cases += 1
+            del src, idx, ext, shr
     for n, w in ((1, 1), (3, 200), (48, 2048), (70, 2049)):  # the reference's test shapes
         stack = words(n, w)
         for op in BitOp:
             same(mws_count(stack, op), mws_count_ref(stack, op), f"mws_count {op} {n}x{w}")
             cases += 1
-    if torch.device(device).type == "cuda":
+    if on_card:
         torch.cuda.synchronize()  # a fault during the runs surfaces here
     return cases
 
 
 SIGN_LENGTHS = (1, 31, 16383, 16385, 3 * 16384 + 7, 1_000_003)
 BIG_SIGN_N = 65_537 * 16384 + 1001  # 65,538 packed rows: past grid-y's 65,535
-VOTE_K = (1, 2, 3, 4, 5, 8)
-VOTE_SHAPES = ((3, 512), (70, 512), (5, 7))
+VOTE_K = (*range(1, 10), 16, 17, 255, 256, 1000)  # each counter width, both sides of its edge
+VOTE_SHAPES = ((3, 512), (70, 512), (5, 7), (9, 131))
 
 
 def sign_rule(x):
@@ -452,24 +528,31 @@ def check_signcomp(device, lengths=SIGN_LENGTHS + (BIG_SIGN_N,)) -> int:
 
 
 class Recorder:
-    """Keeps the largest call of each kernel wrapper on the main path, so
-    the kernel can be timed at the shapes the path gave it; calls are kept
-    per ``tag`` (the flush being served)."""
+    """Keeps the calls of each kernel wrapper on the main path during the
+    first flush of each mix (``tag``: optimizer setting and mix), so the
+    kernels can be checked and timed at the shapes that flush gave them:
+    every call of a wrapper wrapped without ``size``, else the largest."""
 
     def __init__(self):
-        self.calls: dict[str, tuple] = {}
+        self.calls: dict[str, list] = {}
         self.tag = ""
+        self.active = False
 
-    def wrap(self, name, fn, size):
+    def wrap(self, name, fn, size=None):
         def rec(*args, **kwargs):
-            key = name + self.tag
-            best = self.calls.get(key)
-            s = size(*args, **kwargs)
-            if best is None or s > best[0]:
-                self.calls[key] = (s, args, kwargs)
+            if self.active:
+                kept = self.calls.setdefault(name + self.tag, [])
+                if size is None:
+                    kept.append((args, kwargs))
+                elif not kept or size(*args, **kwargs) > size(*kept[0][0], **kept[0][1]):
+                    kept[:] = [(args, kwargs)]
             return fn(*args, **kwargs)
 
         return rec
+
+    def largest(self, key, size):
+        """The largest recorded call under ``key``, as ``(args, kwargs)``."""
+        return max(self.calls[key], key=lambda c: size(*c[0], **c[1]))
 
 
 def check_results(queries, results, oracle, mask_sample: int = 0) -> None:
@@ -489,10 +572,11 @@ def check_results(queries, results, oracle, mask_sample: int = 0) -> None:
                 oracle.check_mask(q.where, words, start, n)
 
 
-def serve_mix(q, dev, store, queries, oracle, optimize: bool, device) -> dict:
+def serve_mix(q, dev, store, queries, oracle, optimize: bool, device, rec=None) -> dict:
     """Serve ``queries`` in one flush through a fresh ``BatchScheduler``:
-    a first flush (kernel launches counted from 0 just before it), then
-    TIMED_FLUSHES warm ones; every answer checked against numpy."""
+    a first flush (kernel launches counted from 0 just before it, its
+    kernel calls kept by ``rec``), then TIMED_FLUSHES warm ones; every
+    answer checked against numpy."""
     import torch
 
     from repro_torch.kernels.mws import mws_gather
@@ -503,10 +587,16 @@ def serve_mix(q, dev, store, queries, oracle, optimize: bool, device) -> dict:
     sched = q.BatchScheduler(dev, store, optimize=optimize, max_batch=256)
     for fn in kernels.values():
         fn.launches = 0
+    mws_gather.variant_launches = dict.fromkeys(mws_gather.variant_launches, 0)
+    if rec is not None:
+        rec.active = True
     t1 = time.perf_counter()
     results = sched.serve(queries)
     first_s = time.perf_counter() - t1
+    if rec is not None:
+        rec.active = False
     launches = {k: fn.launches for k, fn in kernels.items()}
+    variants = dict(mws_gather.variant_launches)
     check_results(queries, results, oracle, mask_sample=4096)
     st = sched.stats()
     first_stats = {k: st[k] for k in _COUNTERS}
@@ -530,6 +620,7 @@ def serve_mix(q, dev, store, queries, oracle, optimize: bool, device) -> dict:
         "warm_flush_p50_s": statistics.median(lat),
         "qps": len(queries) * TIMED_FLUSHES / sum(lat),
         "launches_first_flush": launches,
+        "mws_variants_first_flush": variants,
         "host_transfers_per_flush": st["host_transfers"] / st["flushes"],
         "stats": first_stats,  # counters of the first flush
     }
@@ -565,12 +656,10 @@ def main_path(device, rows: int, log=log) -> dict:
         f"{store.columns['price'].bits} BSI slices, {time.perf_counter() - t0:.3f} s"
     )
 
-    # record the largest launch of each kernel on the path
+    # keep the kernel calls of each mix's first flush
     rec = Recorder()
     orig = (dev_mod.mws_gather, dev_mod.threshold_reduce, agg_mod.popcount)
-    dev_mod.mws_gather = rec.wrap(
-        "mws", mws_gather, lambda src, idx, *a, **k: idx.numel() * src.shape[1]
-    )
+    dev_mod.mws_gather = rec.wrap("mws", mws_gather)
     dev_mod.threshold_reduce = rec.wrap(
         "threshold", threshold_reduce, lambda x, *a, **k: x.numel()
     )
@@ -580,21 +669,22 @@ def main_path(device, rows: int, log=log) -> dict:
     try:
         for name, optimize in (("optimize", True), ("plain", False)):
             for mix, qs, tag in (("count_mask", queries, ""), ("aggregates", mixed, "_aggregates")):
-                rec.tag = tag
-                r = serve_mix(q, dev, store, qs, oracle, optimize, device)
+                rec.tag = f"_{name}{tag}"
+                r = serve_mix(q, dev, store, qs, oracle, optimize, device, rec)
                 out[f"{name}{tag}"] = r
                 log(
                     f"main path [{name}, {mix}]: {r['queries']} queries/flush, first flush "
                     f"{r['first_flush_s']:.4f} s, warm flush p50 {r['warm_flush_p50_s'] * 1e3:.3f} ms "
                     f"({r['qps']:.1f} q/s over {TIMED_FLUSHES} flushes), launches per flush "
-                    f"{r['launches_first_flush']}, host transfers per flush "
+                    f"{r['launches_first_flush']} (mws by variant "
+                    f"{r['mws_variants_first_flush']}), host transfers per flush "
                     f"{r['host_transfers_per_flush']}"
                 )
                 if "profile" in r:
                     log(f"  one warm flush under torch.profiler [{name}, {mix}]: {r['profile']}")
     finally:
         dev_mod.mws_gather, dev_mod.threshold_reduce, agg_mod.popcount = orig
-    out["recorded"] = rec.calls
+    out["recorded"] = rec
     return out
 
 
@@ -640,45 +730,140 @@ def profile_flush(sched, queries) -> dict:
 # -- phase 4: kernel times at the main path's shapes --------------------------
 
 
-def kernel_report(recorded: dict, launches: dict, card: str) -> list[dict]:
-    """mws, threshold and popcount at the largest shapes the COUNT/MASK
-    flush gave them, and popcount at the largest (rows, W) of the flush
-    with aggregates; ``launches`` per kernel in one first flush."""
+def mws_call(args, kwargs) -> dict:
+    """One recorded ``mws_gather`` call: the kernel and its plain version as
+    thunks, the variant the wrapper chooses, and the bytes it names —
+    ``bytes_min`` (each distinct row read once, each output written once;
+    the bound) and ``bytes_gathered`` (every named row read once per
+    output row, as the streaming variant reads them)."""
     import torch
 
     from repro_torch.kernels.mws import mws_gather, mws_gather_ref
+    from repro_torch.kernels.mws import ops as mws_ops
+
+    src, idx = args[0], args[1]
+    op = args[2] if len(args) > 2 else kwargs.get("op")
+    kw = {k: v for k, v in kwargs.items() if k != "op"}
+    B, K, N = idx.shape
+    W = src.shape[1]
+    ext, shr = kw.get("ext"), kw.get("shr")
+    m_ext = 0 if ext is None else ext.shape[1]
+    m_shr = 0 if shr is None else shr.shape[0]
+    outer_or = kw.get("outer_or", True)
+    n_out = B if outer_or else B * K
+    distinct = int(torch.unique(idx[idx >= 0]).numel())
+
+    def forced(variant):
+        def run():
+            out = torch.empty((B, W) if outer_or else (B, K, W), dtype=torch.int32, device=src.device)
+            mws_ops._launch(src, idx, op, outer_or, kw.get("invert", False), ext, shr, out, variant)
+            return out
+
+        return run
+
+    return {
+        "kern": lambda: mws_gather(src, idx, op, **kw),
+        "plain": lambda: mws_gather_ref(src, idx, op, **kw),
+        "forced": forced,
+        "variant": mws_ops.choose_variant(src.shape[0], B, K, N, m_ext, m_shr, outer_or),
+        "bytes_min": (distinct + B * m_ext + m_shr + n_out) * 4 * W + idx.numel() * 4,
+        "bytes_gathered": (B * K * N + n_out) * 4 * W,
+        "ops": B * K * N * W,
+        "shape": f"src {tuple(src.shape)}, idx {tuple(idx.shape)}",
+    }
+
+
+def b1_per_flush(calls: list, bw: float) -> dict:
+    """Every ``mws_gather`` call of one first flush, each held bit-exact
+    against its plain version at its own shape and timed: the sum of the
+    kernel's times, of the distinct-row bounds and of the time the
+    gathered bytes would take, and the calls per variant."""
+    import torch
+
+    kern_ms = bound_ms = gathered_ms = 0.0
+    variants: dict[str, int] = {}
+    for i, (args, kwargs) in enumerate(calls):
+        c = mws_call(args, kwargs)
+        if not torch.equal(c["kern"](), c["plain"]()):
+            raise AssertionError(f"mws call {i} ({c['shape']}): kernel != plain version")
+        kern_ms += time_ms(c["kern"], KERNEL_REPS)
+        bound_ms += c["bytes_min"] / bw * 1e3
+        gathered_ms += c["bytes_gathered"] / bw * 1e3
+        variants[c["variant"]] = variants.get(c["variant"], 0) + 1
+    return {
+        "calls_checked": len(calls),
+        "kernel_ms_sum": kern_ms,
+        "bound_ms_sum": bound_ms,
+        "gathered_ms_sum": gathered_ms,
+        "kernel_over_bound": kern_ms / bound_ms,
+        "calls_by_variant": variants,
+    }
+
+
+def kernel_report(rec, res: dict, card: str) -> list[dict]:
+    """mws at the largest shape of the COUNT/MASK flush with the optimizer
+    on and (row ``mws_optimizer_off``) off, each with that flush's
+    launches and beside the streaming variant and the row-fastest grid
+    control at the same shape; threshold and popcount at the largest
+    shapes of the COUNT/MASK flush with the optimizer on, and popcount at
+    the largest (rows, W) of the flush with aggregates."""
+    import torch
+
+    from repro_torch.kernels.mws import ops as mws_ops
     from repro_torch.kernels.popcount import popcount, popcount_ref
     from repro_torch.kernels.threshold import threshold_reduce, threshold_ref
 
     bw = hbm_rate(card)
+    mws_size = lambda src, idx, *a, **k: idx.numel() * src.shape[1]  # noqa: E731
     rows = []
-    for name in ("mws", "threshold", "popcount", "popcount_aggregates"):
-        _, args, kwargs = recorded[name]
-        if name == "mws":
-            src, idx = args[0], args[1]
-            op = args[2] if len(args) > 2 else kwargs.get("op")
-            kw = {k: v for k, v in kwargs.items() if k != "op"}
-            kern = lambda: mws_gather(src, idx, op, **kw)  # noqa: E731
-            plain = lambda: mws_gather_ref(src, idx, op, **kw)  # noqa: E731
-            B, K, N = idx.shape
-            W = src.shape[1]
-            distinct = int(torch.unique(idx[idx >= 0]).numel())
-            ext, shr = kw.get("ext"), kw.get("shr")
-            extra = (0 if ext is None else ext.shape[0] * ext.shape[1]) + (
-                0 if shr is None else shr.shape[0]
+    for name, key, setting in (
+        ("mws", "mws_optimize", "optimize"),
+        ("mws_optimizer_off", "mws_plain", "plain"),
+    ):
+        c = mws_call(*rec.largest(key, mws_size))
+        controls = {}
+        for label, variant in (
+            ("streaming", mws_ops.VARIANTS["streaming"]),
+            ("row_fastest", mws_ops.ROW_FASTEST),
+        ):
+            got, want = c["forced"](variant)(), c["plain"]()
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"{name}: the {label} launch != plain version")
+            controls[f"{label}_ms"] = time_ms(c["forced"](variant), KERNEL_REPS)
+        rows.append(
+            kernel_row(
+                name,
+                c["kern"],
+                c["plain"],
+                res[setting]["launches_first_flush"]["mws"],
+                c["bytes_min"],
+                c["ops"],
+                bw,
+                c["shape"],
+                variant=c["variant"],
+                variants_first_flush=res[setting]["mws_variants_first_flush"],
+                gathered_ms=c["bytes_gathered"] / bw * 1e3,
+                **controls,
             )
-            n_out = B if kw.get("outer_or", True) else B * K
-            bytes_min = (distinct + extra + n_out) * 4 * W + idx.numel() * 4
-            bytes_kernel = (B * K * N + n_out) * 4 * W
-            ops = B * K * N * W
-            shape = f"src {tuple(src.shape)}, idx {tuple(idx.shape)}"
-        elif name == "threshold":
+        )
+        log(
+            f"kernel {name}: indexes {c['bytes_gathered']} bytes of rows and outputs; "
+            f"its bound counts {c['bytes_min']} bytes and {c['ops']} operations; "
+            f"{c['variant']} variant; {controls}"
+        )
+    for name, key in (
+        ("threshold", "threshold_optimize"),
+        ("popcount", "popcount_optimize"),
+        ("popcount_aggregates", "popcount_optimize_aggregates"),
+    ):
+        args, kwargs = rec.calls[key][0]
+        if name == "threshold":
             x, k = args[0], args[1]
             inv = kwargs.get("invert", False)
             kern = lambda: threshold_reduce(x, k, invert=inv)  # noqa: E731
             plain = lambda: threshold_ref(x, k, invert=inv)  # noqa: E731
             B, n, W = x.shape
-            bytes_min = bytes_kernel = (B * n + B) * 4 * W
+            nbytes = (B * n + B) * 4 * W
             ops = B * W * (8 * n + 9 * (n - k + 1))
             shape = f"x {tuple(x.shape)}, k={k}"
         else:
@@ -686,14 +871,13 @@ def kernel_report(recorded: dict, launches: dict, card: str) -> list[dict]:
             kern = lambda: popcount(x)  # noqa: E731
             plain = lambda: popcount_ref(x)  # noqa: E731
             R, W = x.shape
-            bytes_min = bytes_kernel = R * W * 4 + R * 4
+            nbytes = R * W * 4 + R * 4
             ops = 2 * R * W
             shape = f"words {tuple(x.shape)}"
-        rows.append(kernel_row(name, kern, plain, launches[name], bytes_min, ops, bw, shape))
-        log(
-            f"kernel {name}: indexes {bytes_kernel} bytes of rows and outputs; "
-            f"its bound counts {bytes_min} bytes and {ops} operations"
-        )
+        setting = "optimize_aggregates" if name == "popcount_aggregates" else "optimize"
+        launches = res[setting]["launches_first_flush"][name.split("_")[0]]
+        rows.append(kernel_row(name, kern, plain, launches, nbytes, ops, bw, shape))
+        log(f"kernel {name}: moves {nbytes} bytes and {ops} operations")
     return rows
 
 
@@ -1048,7 +1232,8 @@ def majority_phase(n: int, card: str) -> dict:
     K data-parallel replicas would (each plane packs one replica's
     gradient: a shared part plus its own noise), with the counter set to 0
     just before; check every vote against the plain version; time the
-    largest K.  No program path votes on one card (ROADMAP A8d)."""
+    largest K and, beside it, the smallest.  No program path votes on one
+    card (ROADMAP A8d)."""
     import torch
 
     from repro_torch.kernels.signcomp import compress_signs, majority_ref, majority_vote, sign_layout
@@ -1070,16 +1255,21 @@ def majority_phase(n: int, card: str) -> dict:
             raise AssertionError(f"majority K={k}: kernel != plain version")
     del votes
     RW = layout.rows * layout.words
+    counter_planes = next(p for p, most in ((3, 7), (4, 15), (8, 255), (16, 65535)) if K <= most)
     row = kernel_row(
         "majority",
         lambda: majority_vote(planes),
         lambda: majority_ref(planes),
         launches,
         4 * K * RW + 4 * RW,
-        48 * K * RW + 64 * RW,  # 16 SWAR shift/and/add triples per input word
+        (2 * K + 2) * counter_planes * RW,  # a ripple carry per input word, a borrow chain per output
         hbm_rate(card),
         f"stacks ({K}, {layout.rows}, {layout.words}) -> ({layout.rows}, {layout.words})",
         path=f"votes of K={list(VOTERS)} replica planes; no program path on one card",
+        # the smaller vote, an even K (ties vote 1), timed beside it
+        smaller_k=min(VOTERS),
+        smaller_k_ms=time_ms(lambda: majority_vote(planes[: min(VOTERS)]), KERNEL_REPS),
+        smaller_k_bound_ms=4 * (min(VOTERS) + 1) * RW / hbm_rate(card) * 1e3,
     )
     del planes
     return row
@@ -1131,17 +1321,19 @@ def main() -> int:
 
     log(json.dumps({"reduced": {"rows": [PAPER_ROWS, ROWS], "why": "the smoke's time limit"}}))
     res = main_path("cuda", ROWS)
-    launches = res["optimize"]["launches_first_flush"] | {
-        "popcount_aggregates": res["optimize_aggregates"]["launches_first_flush"]["popcount"]
-    }
-    report = kernel_report(res["recorded"], launches, kind)
+    rec = res.pop("recorded")
+    report = kernel_report(rec, res, kind)
+    for name in ("optimize", "plain"):
+        per_flush = b1_per_flush(rec.calls[f"mws_{name}"], hbm_rate(kind))
+        per_flush["launches_by_variant"] = res[name]["mws_variants_first_flush"]
+        log(json.dumps({"b1_per_flush": per_flush, "optimizer": name == "optimize", "card": card_line}))
+    del rec
     for r in report:
         log(
             f"kernel {r['name']}: {r['ms']:.4f} ms at {r['shape']}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['launches']} launches per flush"
         )
-    del res["recorded"]
     summary = {k: v for k, v in res.items() if isinstance(v, dict)}
     log(json.dumps({"main_path": summary, "rows": ROWS, "words": res["words"], "card": card_line}))
     del res

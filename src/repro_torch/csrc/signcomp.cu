@@ -17,8 +17,9 @@
 //
 // Bound: memory, for all three.  pack reads 4n bytes and writes n/8;
 // unpack reads n/8 and writes 4n; majority reads 4*K*R*W and writes
-// 4*R*W.  Their arithmetic (one compare/shift/or per element, or a few
-// adds per input word) is far below the card's integer rate.
+// 4*R*W.  Their arithmetic (one compare/shift/or per element, or two
+// logic ops per counter plane per input word) is far below the card's
+// integer rate.
 //
 // Design: one thread per output word (per VEC = 4 words where W and the
 // pointers allow 16-byte accesses).  The 32 elements of a word lie W
@@ -27,10 +28,13 @@
 // largest gradient leaf (starcoder2-3b's stacked MLP up-projection) has
 // 1.13e9 elements, 69,120 packed rows and 4.5 GB of floats, past both a
 // 65,535 grid-y limit and 32-bit offsets, so the grid is 1-D,
-// grid-stride, and every index is 64-bit.  The majority keeps 16-bit
-// counters for two bits in each of 16 registers (SWAR), so one word of
-// each plane costs 16 shift/and/add triples; K <= 65535 keeps a counter
-// from spilling into its neighbour.
+// grid-stride, and every index is 64-bit.  The majority counts votes in
+// a vertical bit-sliced counter: P = ceil(log2(K+1)) 32-bit planes in
+// registers, plane j holding bit j of all 32 bit positions' counts, so
+// one input word is added by a ripple carry of two logic ops per plane
+// (as threshold.cu counts).  The vote count >= ceil(K/2) is a borrow
+// chain against that constant, one op per plane.  P is a template
+// parameter: 3 (K <= 7), 4 (K <= 15), 8 (K <= 255) and 16 (K <= 65535).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,30 +148,78 @@ __global__ void unpack_signs_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+// Adds one word to a P-plane bit-sliced counter.
+template <int P>
+__device__ __forceinline__ void count_word(uint32_t (&c)[P], uint32_t carry) {
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const uint32_t t = c[j] & carry;
+    c[j] ^= carry;
+    carry = t;
+  }
+}
+
+// Bit i of the result is 1 where count_i >= thr (thr < 2^P): the
+// complement of the borrow out of count - thr.
+template <int P>
+__device__ __forceinline__ uint32_t at_least(const uint32_t (&c)[P], uint32_t thr) {
+  uint32_t borrow = 0u;
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+    borrow = (thr >> j) & 1u ? ~c[j] | borrow : ~c[j] & borrow;
+  return ~borrow;
+}
+
+// stacks: K planes of `words` words; VEC words per thread (words % VEC
+// == 0).  Ties (even K) vote 1: the threshold is ceil(K/2).
+template <int P, int VEC>
 __global__ void majority_kernel(const uint32_t* __restrict__ stacks,
                                 uint32_t* __restrict__ out, int K,
-                                long long words) {
+                                long long groups, long long words) {
+  const uint32_t thr = ((uint32_t)K + 1u) >> 1;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < words; i += stride) {
-    // cnt[j]: votes for bit j in the low half, for bit j + 16 in the high
-    uint32_t cnt[16];
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       g < groups; g += stride) {
+    const long long i = g * VEC;
+    uint32_t c[VEC][P];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) cnt[j] = 0u;
+    for (int v = 0; v < VEC; ++v)
+#pragma unroll
+      for (int j = 0; j < P; ++j) c[v][j] = 0u;
+    const uint32_t* p = stacks + i;
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const uint32_t w = __ldg(stacks + (long long)k * words + i);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) cnt[j] += (w >> j) & 0x00010001u;
+    for (int k = 0; k < K; ++k, p += words) {
+      if (VEC == 4) {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+        count_word<P>(c[0], q.x);
+        count_word<P>(c[1 % VEC], q.y);
+        count_word<P>(c[2 % VEC], q.z);
+        count_word<P>(c[3 % VEC], q.w);
+      } else {
+        count_word<P>(c[0], __ldg(p));
+      }
     }
-    uint32_t word = 0u;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      word |= (uint32_t)(2u * (cnt[j] & 0xFFFFu) >= (uint32_t)K) << j;
-      word |= (uint32_t)(2u * (cnt[j] >> 16) >= (uint32_t)K) << (j + 16);
+    if (VEC == 4) {
+      *reinterpret_cast<uint4*>(out + i) =
+          make_uint4(at_least<P>(c[0], thr), at_least<P>(c[1 % VEC], thr),
+                     at_least<P>(c[2 % VEC], thr), at_least<P>(c[3 % VEC], thr));
+    } else {
+      out[i] = at_least<P>(c[0], thr);
     }
-    out[i] = word;
   }
+}
+
+template <int P>
+cudaError_t launch_majority(const uint32_t* stacks, uint32_t* out, int K,
+                            long long words, int vec, cudaStream_t st) {
+  const long long groups = words / vec;
+  if (vec == 4)
+    majority_kernel<P, 4><<<blocks_for(groups), kThreads, 0, st>>>(stacks, out, K,
+                                                                   groups, words);
+  else
+    majority_kernel<P, 1><<<blocks_for(groups), kThreads, 0, st>>>(stacks, out, K,
+                                                                   groups, words);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -213,13 +265,17 @@ extern "C" int unpack_signs_launch(const void* words, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// stacks: K planes of `words` words each; out: `words` words.
+// stacks: K planes of `words` words each; out: `words` words.  vec: 4
+// (words % 4 == 0, both pointers 16-byte aligned) or 1.
 extern "C" int majority_launch(const void* stacks, void* out, int K,
-                               long long words, void* stream) {
-  if (K < 1 || K > 65535 || words <= 0) return (int)cudaErrorInvalidValue;
+                               long long words, int vec, void* stream) {
+  if (K < 1 || K > 65535 || words <= 0 || (vec != 1 && vec != 4) || words % vec)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  majority_kernel<<<blocks_for(words), kThreads, 0, st>>>(
-      static_cast<const uint32_t*>(stacks), static_cast<uint32_t*>(out), K,
-      words);
-  return (int)cudaGetLastError();
+  const uint32_t* s = static_cast<const uint32_t*>(stacks);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  if (K <= 7) return (int)launch_majority<3>(s, o, K, words, vec, st);
+  if (K <= 15) return (int)launch_majority<4>(s, o, K, words, vec, st);
+  if (K <= 255) return (int)launch_majority<8>(s, o, K, words, vec, st);
+  return (int)launch_majority<16>(s, o, K, words, vec, st);
 }

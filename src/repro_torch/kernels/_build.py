@@ -40,9 +40,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # (src, ext, shr, idx, out, B, K, N, W, m_ext, op, outer_or, invert,
-    #  vec, stream)
-    "mws_gather_launch": (_P,) * 5 + (_I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
+    # (src, ext, shr, idx, out, S, B, K, N, W, m_ext, m_shr, op, outer_or,
+    #  invert, vec, variant, stream)
+    "mws_gather_launch": (_P,) * 5 + (_I, _I, _I, _I, _L) + (_I,) * 7 + (_P,),
     # (x, out, R, W, vec, stream)
     "popcount_launch": (_P, _P, _I, _L, _I, _P),
     # (x, out, N, W, op, invert, vec, stream)
@@ -52,8 +52,8 @@ _SIGNATURES = {
     # (x or words, out, n, R, W, vec, stream)
     "pack_signs_launch": (_P, _P, _L, _L, _L, _I, _P),
     "unpack_signs_launch": (_P, _P, _L, _L, _L, _I, _P),
-    # (stacks, out, K, words, stream)
-    "majority_launch": (_P, _P, _I, _L, _P),
+    # (stacks, out, K, words, vec, stream)
+    "majority_launch": (_P, _P, _I, _L, _I, _P),
 }
 
 _lock = threading.Lock()

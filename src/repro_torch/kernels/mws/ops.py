@@ -4,6 +4,11 @@
 snapshot's rows by index, so the gathered (B, K, N, W) cube of the
 reference never exists.  ``mws_reduce`` keeps the reference's
 ``(N, W) -> (W,)`` contract on the same kernel (identity indices, K = 1).
+
+The kernel has two variants, chosen by :func:`choose_variant` from
+shapes alone: ``streaming`` reads every named row once per output row;
+``staged`` has each CTA stage a column tile of the launch's distinct rows
+in shared memory once and compute every output row from it.
 """
 
 from __future__ import annotations
@@ -16,6 +21,79 @@ from repro_torch.kernels.mws.ref import mws_gather_ref
 
 _OP_CODES = {BitOp.AND: 0, BitOp.OR: 1, BitOp.XOR: 2}
 _MAX_GRID_Y = 65535
+VARIANTS = {"streaming": 0, "staged": 1}
+ROW_FASTEST = 2  # the streaming kernel, output row fastest: a measurement control
+
+# The staged variant's shared memory (csrc/mws.cu: staged_smem_bytes): a
+# 128-byte header, two stages of at least 128 words for every row a launch
+# could stage, a table of 2,048 entries, and two ints per stageable row,
+# within one block's 227 KB.
+_STAGE_HEADER = 128
+_TILE_QUANTUM = 128
+_STAGE_WORDS = 12288
+_TABLE_ENTRIES = 2048
+_MAX_SMEM = 232448
+
+
+def staged_fits(S: int, m_shr: int, entries: int, per_out: int) -> bool:
+    """Whether a launch fits the staged variant: its stageable rows (the
+    S snapshot slots and m_shr shared rows, or its entries if fewer) at
+    the narrowest tile, and one output's ``per_out`` entries in the table."""
+    rows = min(S, entries) + m_shr
+    words = max(rows * _TILE_QUANTUM, _STAGE_WORDS)
+    smem = _STAGE_HEADER + 8 * words + 4 * _TABLE_ENTRIES + 8 * (S + m_shr)
+    return smem <= _MAX_SMEM and per_out <= _TABLE_ENTRIES
+
+
+def choose_variant(
+    S: int, B: int, K: int, N: int, m_ext: int, m_shr: int, outer_or: bool = True
+) -> str:
+    """The kernel variant for a launch, from shapes alone.
+
+    A row named by several output rows costs the streaming kernel one
+    HBM read per output row that names it, unless the L2 still holds it;
+    the staged kernel reads each distinct row once per column tile.  So
+    the staged kernel runs where rows can repeat — the launch has more
+    than one output row, or names more rows (B·K·N) than there are
+    distinct rows it could name — and where its rows fit the two
+    stages.  Otherwise the streaming kernel runs: a single output row
+    (one plan, or ``mws_reduce``'s identity indices), a store too wide to
+    stage, or outputs that each fold one row of their own plan's spill
+    scratch (K·N = 1 beside ext rows: nothing repeats, and a spill row is
+    read from global memory either way).  The choice never looks at
+    idx's values, so it needs no host sync.
+    """
+    n_out = B if outer_or else B * K
+    spill_only = K * N == 1 and m_ext > 0
+    repeats = (n_out > 1 and not spill_only) or B * K * N > S + B * m_ext + m_shr
+    per_out = (K if outer_or else 1) * N
+    if repeats and staged_fits(S, m_shr, B * K * N, per_out):
+        return "staged"
+    return "streaming"
+
+
+def _launch(src, idx, op, outer_or, invert, ext, shr, out, variant: int) -> None:
+    B, K, N = idx.shape
+    _build.launch(
+        "mws_gather_launch",
+        src.data_ptr(),
+        None if ext is None else ext.data_ptr(),
+        None if shr is None else shr.data_ptr(),
+        idx.data_ptr(),
+        out.data_ptr(),
+        src.shape[0],
+        B,
+        K,
+        N,
+        src.shape[1],
+        0 if ext is None else ext.shape[1],
+        0 if shr is None else shr.shape[0],
+        _OP_CODES[op],
+        int(outer_or),
+        int(invert),
+        _build.vec_width(src.shape[1], src, ext, shr, out),
+        variant,
+    )
 
 
 def mws_gather(
@@ -69,28 +147,23 @@ def mws_gather(
         return out
     if (B if outer_or else B * K) > _MAX_GRID_Y:
         raise ValueError(f"batch {B} x blocks {K} exceeds the launch grid")
-    _build.launch(
-        "mws_gather_launch",
-        src.data_ptr(),
-        None if ext is None else ext.data_ptr(),
-        None if shr is None else shr.data_ptr(),
-        idx.data_ptr(),
-        out.data_ptr(),
+    variant = choose_variant(
+        src.shape[0],
         B,
         K,
         N,
-        W,
         0 if ext is None else ext.shape[1],
-        _OP_CODES[op],
-        int(outer_or),
-        int(invert),
-        _build.vec_width(W, src, ext, shr, out),
+        0 if shr is None else shr.shape[0],
+        outer_or,
     )
+    _launch(src, idx, op, outer_or, invert, ext, shr, out, VARIANTS[variant])
     mws_gather.launches += 1
+    mws_gather.variant_launches[variant] += 1
     return out
 
 
-mws_gather.launches = 0
+mws_gather.launches = 0  # every launch, of either variant
+mws_gather.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def mws_reduce(stack: torch.Tensor, op: BitOp) -> torch.Tensor:

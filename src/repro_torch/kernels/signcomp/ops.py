@@ -25,7 +25,7 @@ from repro_torch.kernels.signcomp.ref import (
 )
 
 LANES = 512  # words per packed row; rows of 32*512 = 16384 elements
-MAX_VOTERS = 65535  # the kernel's 16-bit vote counters
+MAX_VOTERS = 65535  # the kernel's widest bit-sliced counter: 16 planes count to 2^16 - 1
 
 
 @dataclass(frozen=True)
@@ -118,7 +118,14 @@ def majority_vote(stacks: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{K} planes exceed the kernel's {MAX_VOTERS} voters")
     out = torch.empty((R, W), dtype=torch.int32, device=stacks.device)
     if R and W:
-        _build.launch("majority_launch", stacks.data_ptr(), out.data_ptr(), K, R * W)
+        _build.launch(
+            "majority_launch",
+            stacks.data_ptr(),
+            out.data_ptr(),
+            K,
+            R * W,
+            _build.vec_width(R * W, stacks, out),
+        )
         majority_vote.launches += 1
     return out
 

@@ -4,8 +4,10 @@ kernels they replace.
 On the CPU each wrapper runs its plain PyTorch version; these tests hold
 that plain version bit-exact against the reference Pallas kernel run in
 interpret mode (as ``tests/test_kernel_mws.py`` runs it), on small ragged
-shapes, every op and every k.  The cases marked ``cuda`` hold the CUDA
-kernel itself against its plain version and run only on the card.
+shapes, every op and every k, and check which of B1's two variants
+(streaming, staged) the wrapper picks from a launch's shapes.  The cases
+marked ``cuda`` hold the CUDA kernel itself, each variant of B1 included,
+against its plain version and run only on the card.
 Tolerance: none — packed words compare bit for bit on the uint32 view.
 
 The reference (JAX) is imported only by the fixture that needs it, so the
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.core.bitops import BitOp, to_uint32, to_words
 from repro_torch.kernels.mws import mws_gather, mws_gather_ref, mws_reduce, mws_reduce_ref
+from repro_torch.kernels.mws.ops import _MAX_GRID_Y, choose_variant, staged_fits
 from repro_torch.kernels.popcount import popcount, popcount_ref
 from repro_torch.kernels.threshold import threshold_reduce, threshold_ref
 
@@ -172,6 +175,39 @@ def test_wrappers_reject_bad_arguments():
         mws_reduce(x[:0], BitOp.AND)
 
 
+# (S, B, K, N, m_ext, m_shr, outer_or) -> the variant B1's wrapper launches
+_VARIANT_CASES = [
+    ((365, 1, 1, 365, 0, 0, True), "streaming"),  # mws_reduce at d = 365 (B1 + B2)
+    ((30, 1, 1, 30, 0, 0, True), "streaming"),  # mws_reduce at d = 30: one output row
+    ((64, 45, 2, 2, 0, 0, True), "staged"),  # the flush's largest COUNT group
+    ((52, 22, 2, 2, 0, 0, True), "staged"),  # the same group, optimizer on
+    ((64, 12, 1, 1, 0, 0, True), "staged"),  # 12 plans, one row each
+    ((64, 12, 1, 1, 1, 0, True), "streaming"),  # 12 plans, each its own spill row
+    ((64, 1, 5, 1, 2, 1, False), "staged"),  # a threshold's per-block form: 5 outputs
+    ((64, 1, 1, 1, 0, 0, True), "streaming"),  # one plan, one row
+    ((64, 1, 3, 2, 0, 0, True), "streaming"),  # one output; its rows needn't repeat
+    ((4, 1, 4, 3, 0, 0, True), "staged"),  # one output naming 12 rows of 4
+    ((20_000, 45, 2, 2, 0, 0, True), "streaming"),  # a store too wide to stage
+    ((64, 2, 1, 2049, 0, 0, True), "streaming"),  # an output's entries past the table
+    ((9, _MAX_GRID_Y // 5, 5, 1, 0, 0, False), "staged"),  # B*K at the grid limit
+]
+
+
+@pytest.mark.parametrize("shape,variant", _VARIANT_CASES, ids=lambda c: str(c))
+def test_mws_variant_is_chosen_from_shapes(shape, variant):
+    assert choose_variant(*shape) == variant
+
+
+def test_staged_fits_at_its_capacity():
+    """The stages hold 128 words for each of up to 217 rows beside the
+    2,048-entry table and the row map: 214 slots and 3 shared rows fit,
+    one more does not, and fewer entries than slots size the stage."""
+    assert staged_fits(214, 3, 1 << 20, 4)
+    assert not staged_fits(215, 3, 1 << 20, 4)
+    assert staged_fits(4000, 0, 180, 4)
+    assert not staged_fits(64, 0, 180, 2049)
+
+
 # -- the CUDA kernels against their plain versions (on the card only) ---------
 
 
@@ -221,3 +257,68 @@ def test_threshold_kernel_matches_plain(cuda, w):
                 assert torch.equal(
                     threshold_reduce(x, k, invert=inv), threshold_ref(x, k, invert=inv)
                 )
+
+
+def _staged_cases(cuda, w):
+    """Launches of B1's staged variant at width ``w`` (as chip_smoke.py's
+    check_kernels has them): many plans over few rows, every slot and
+    shared row at the stages' capacity, spill and shared rows together,
+    and B*K at the launch grid's limit."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(w)
+    rng = np.random.default_rng(w)
+
+    def words(*shape):
+        return torch.randint(-(2**31), 2**31, shape, generator=g, dtype=torch.int32, device=cuda)
+
+    def ix(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=cuda)
+
+    S, m_shr = 214, 3
+    every = np.concatenate([np.arange(S), -1 - np.arange(m_shr)])
+    cap = rng.integers(-m_shr, S, 4 * 56)
+    cap[: every.size] = rng.permutation(every)
+    return {
+        "few rows": (words(9, w), ix(rng.choice([0, 4, 7], (40, 2, 2))), None, None),
+        "capacity": (words(S, w), ix(cap.reshape(56, 2, 2)), None, words(m_shr, w)),
+        "ext+shr": (words(9, w), ix(rng.integers(-5, 9, (30, 2, 3))), words(30, 2, w), words(3, w)),
+        "grid limit": (words(9, w), ix(rng.integers(0, 9, (_MAX_GRID_Y // 5, 5, 1))), None, None),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 127, 2049, 4100])
+@pytest.mark.parametrize("case", ["few rows", "capacity", "ext+shr", "grid limit"])
+def test_mws_staged_kernel_matches_plain(cuda, w, case):
+    """W ragged (127, 2049: 4-byte cp.async stages), smaller than a tile
+    (1, 127), or a multiple of 4 with a ragged last tile (4100: TMA bulk
+    copies); the per-block form; each launch moves the staged counter."""
+    src, idx, ext, shr = _staged_cases(cuda, w)[case]
+    for op in (BitOp.AND, BitOp.OR, BitOp.XOR):
+        for outer_or in (True, False) if case != "grid limit" else (False,):
+            kw = dict(outer_or=outer_or, invert=op is BitOp.OR, ext=ext, shr=shr)
+            before = dict(mws_gather.variant_launches)
+            total = mws_gather.launches
+            got = mws_gather(src, idx, op, **kw)
+            assert mws_gather.variant_launches == before | {"staged": before["staged"] + 1}
+            assert mws_gather.launches == total + 1
+            assert torch.equal(got, mws_gather_ref(src, idx, op, **kw))
+
+
+@pytest.mark.cuda
+def test_mws_reduce_launches_the_streaming_variant(cuda):
+    """Identity indices (one output row) take the streaming kernel and
+    move only its counter; a many-plan gather over the same rows moves
+    only the staged one; the total counts both."""
+    x = torch.randint(-(2**31), 2**31, (30, 4100), dtype=torch.int32, device=cuda)
+    before = dict(mws_gather.variant_launches)
+    total = mws_gather.launches
+    assert torch.equal(mws_reduce(x, BitOp.AND), mws_reduce_ref(x, BitOp.AND))
+    assert mws_gather.variant_launches == before | {"streaming": before["streaming"] + 1}
+    idx = torch.randint(0, 30, (8, 2, 2), dtype=torch.int32, device=cuda)
+    assert torch.equal(mws_gather(x, idx), mws_gather_ref(x, idx))
+    assert mws_gather.variant_launches == {
+        "streaming": before["streaming"] + 1,
+        "staged": before["staged"] + 1,
+    }
+    assert mws_gather.launches == total + 2

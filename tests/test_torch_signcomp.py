@@ -223,3 +223,25 @@ def test_pack_kernel_past_the_grid_y_limit(cuda):
 def test_majority_kernel_matches_plain(cuda, k, r, w):
     s = torch.randint(-(2**31), 2**31, (k, r, w), dtype=torch.int32, device=cuda)
     assert torch.equal(majority_vote(s), majority_ref(s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 17, 255, 256, 1000, 65535])
+def test_majority_kernel_wide_votes(cuda, k):
+    """Each bit-sliced counter width at and past its edge (4, 8 and 16
+    planes), with words planted at the vote's threshold: floor(K/2) ones
+    (a tie for even K, which votes 1), ceil(K/2) ones, and all K ones."""
+    s = torch.randint(-(2**31), 2**31, (k, 2, 7), dtype=torch.int32, device=cuda)
+    for col, ones in ((0, k // 2), (1, (k + 1) // 2), (2, k)):
+        s[:, 0, col] = 0
+        s[:ones, 0, col] = -1
+    got = majority_vote(s)
+    assert torch.equal(got, majority_ref(s))
+    assert to_uint32(got.cpu())[0, 0] == (0xFFFFFFFF if k % 2 == 0 else 0)
+    assert to_uint32(got.cpu())[0, 1] == to_uint32(got.cpu())[0, 2] == 0xFFFFFFFF
+
+
+@pytest.mark.cuda
+def test_majority_kernel_rejects_more_voters_than_its_counter(cuda):
+    with pytest.raises(ValueError, match="65535"):
+        majority_vote(torch.zeros((65536, 1, 1), dtype=torch.int32, device=cuda))
