@@ -53,6 +53,7 @@ NUM_COUNT = 64
 SEED = 0
 TIMED_FLUSHES = 20
 KERNEL_REPS = 20
+FLUSH_REPS = 10  # replays of one flush's B1 calls, in its order
 
 # the bounds are for the H100 SXM (NVIDIA data sheet): its HBM3 rate, and
 # its non-tensor 32-bit peak (67 TFLOP/s fp32) for the integer/logic ops,
@@ -272,6 +273,15 @@ class Oracle:
 # -- timing -----------------------------------------------------------------
 
 
+def hold_card(host_s: float) -> None:
+    """Queue a sleep on the card longer than ``host_s`` seconds of host
+    work, so that work's launches are all enqueued before the card runs
+    them and a timing window then holds the device's time only."""
+    import torch
+
+    torch.cuda._sleep(int(min(2e9 * (2 * host_s + 1e-3), 4e9)))  # cycles, about 2 GHz
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
     with CUDA events around the whole run.  The card first sleeps for
@@ -290,7 +300,7 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2e9 * (2 * reps * host_s + 1e-3), 4e9)))  # cycles, about 2 GHz
+    hold_card(reps * host_s)
     start.record()
     for _ in range(reps):
         fn()
@@ -313,10 +323,11 @@ GRID_LIMIT_WIDTH = 4100  # the widest W of the B*K = 65,535 staged cases
 
 
 def staged_cases(w: int, words, device) -> list:
-    """Launches that B1's wrapper sends to its staged variant, at width
-    ``w``: many plans over few rows; every slot and shared row named, at
-    the stages' capacity; spill and shared rows together; and, for W up
-    to GRID_LIMIT_WIDTH, B*K at the launch grid's limit.  Each is
+    """Launches that B1's wrapper sends to its staged variant where W is a
+    multiple of 4 (to the streaming one otherwise), at width ``w``: many
+    plans over few rows; every slot and shared row named, at the stages'
+    capacity; spill and shared rows together; and, for W up to
+    GRID_LIMIT_WIDTH, B*K at the launch grid's limit.  Each is
     ``(label, src, idx, ext, shr, outer_or values)``."""
     import torch
 
@@ -358,6 +369,7 @@ def check_kernels(device, widths=WIDTHS) -> int:
     import torch
 
     from repro_torch.core.bitops import BitOp
+    from repro_torch.kernels._build import vec_width
     from repro_torch.kernels.mws import mws_gather, mws_gather_ref, mws_reduce, mws_reduce_ref
     from repro_torch.kernels.mws.ops import choose_variant
     from repro_torch.kernels.mws_count import mws_count, mws_count_ref
@@ -427,24 +439,26 @@ def check_kernels(device, widths=WIDTHS) -> int:
                         f"gather {op} outer={outer_or} inv={inv} w={w}",
                     )
                     cases += 1
-        # B1's staged variant
+        # B1's staged variant (the streaming one at a ragged W)
         for label, src, idx, ext, shr, outer in staged_cases(w, words, device):
             B, K, N = idx.shape
             m_ext = 0 if ext is None else ext.shape[1]
             m_shr = 0 if shr is None else shr.shape[0]
-            if any(choose_variant(src.shape[0], B, K, N, m_ext, m_shr, o) != "staged" for o in outer):
-                raise AssertionError(f"staged case {label} w={w} would not run staged")
+            vec = vec_width(w, src, ext, shr)
+            want = "staged" if w % 4 == 0 else "streaming"
+            if any(choose_variant(src.shape[0], B, K, N, m_ext, m_shr, o, vec) != want for o in outer):
+                raise AssertionError(f"staged case {label} w={w} would not run {want}")
             for op in (BitOp.AND, BitOp.OR, BitOp.XOR):
                 for outer_or in outer:
                     kw = dict(outer_or=outer_or, invert=op is BitOp.OR, ext=ext, shr=shr)
-                    before = mws_gather.variant_launches["staged"]
+                    before = mws_gather.variant_launches[want]
                     same(
                         mws_gather(src, idx, op, **kw),
                         mws_gather_ref(src, idx, op, **kw),
                         f"staged {label} {op} outer={outer_or} w={w}",
                     )
-                    if on_card and mws_gather.variant_launches["staged"] != before + 1:
-                        raise AssertionError(f"staged case {label} w={w} did not launch staged")
+                    if on_card and mws_gather.variant_launches[want] != before + 1:
+                        raise AssertionError(f"staged case {label} w={w} did not launch {want}")
                     cases += 1
             del src, idx, ext, shr
     for n, w in ((1, 1), (3, 200), (48, 2048), (70, 2049)):  # the reference's test shapes
@@ -731,13 +745,15 @@ def profile_flush(sched, queries) -> dict:
 
 
 def mws_call(args, kwargs) -> dict:
-    """One recorded ``mws_gather`` call: the kernel and its plain version as
-    thunks, the variant the wrapper chooses, and the bytes it names —
+    """One recorded ``mws_gather`` call: the kernel, its plain version and
+    a launch of the streaming variant as thunks, the variant the wrapper
+    chooses, and the bytes it names —
     ``bytes_min`` (each distinct row read once, each output written once;
     the bound) and ``bytes_gathered`` (every named row read once per
     output row, as the streaming variant reads them)."""
     import torch
 
+    from repro_torch.kernels._build import vec_width
     from repro_torch.kernels.mws import mws_gather, mws_gather_ref
     from repro_torch.kernels.mws import ops as mws_ops
 
@@ -752,20 +768,19 @@ def mws_call(args, kwargs) -> dict:
     outer_or = kw.get("outer_or", True)
     n_out = B if outer_or else B * K
     distinct = int(torch.unique(idx[idx >= 0]).numel())
+    vec = vec_width(W, src, ext, shr)
 
-    def forced(variant):
-        def run():
-            out = torch.empty((B, W) if outer_or else (B, K, W), dtype=torch.int32, device=src.device)
-            mws_ops._launch(src, idx, op, outer_or, kw.get("invert", False), ext, shr, out, variant)
-            return out
-
-        return run
+    def streaming():
+        out = torch.empty((B, W) if outer_or else (B, K, W), dtype=torch.int32, device=src.device)
+        inv = kw.get("invert", False)
+        mws_ops._launch(src, idx, op, outer_or, inv, ext, shr, out, vec, mws_ops.VARIANTS["streaming"])
+        return out
 
     return {
         "kern": lambda: mws_gather(src, idx, op, **kw),
         "plain": lambda: mws_gather_ref(src, idx, op, **kw),
-        "forced": forced,
-        "variant": mws_ops.choose_variant(src.shape[0], B, K, N, m_ext, m_shr, outer_or),
+        "streaming": streaming,
+        "variant": mws_ops.choose_variant(src.shape[0], B, K, N, m_ext, m_shr, outer_or, vec),
         "bytes_min": (distinct + B * m_ext + m_shr + n_out) * 4 * W + idx.numel() * 4,
         "bytes_gathered": (B * K * N + n_out) * 4 * W,
         "ops": B * K * N * W,
@@ -773,29 +788,82 @@ def mws_call(args, kwargs) -> dict:
     }
 
 
-def b1_per_flush(calls: list, bw: float) -> dict:
-    """Every ``mws_gather`` call of one first flush, each held bit-exact
-    against its plain version at its own shape and timed: the sum of the
-    kernel's times, of the distinct-row bounds and of the time the
-    gathered bytes would take, and the calls per variant."""
+L2_SCRUB_BYTES = 256 << 20  # written before each replay: five times the H100's 50 MB L2
+
+
+def replay_ms(fns: list, reps: int, hide_host: bool = True) -> tuple[float, list[float]]:
+    """Run ``fns`` in order, as the flush issued them, ``reps`` times with
+    CUDA events around each whole run; returns the mean device
+    milliseconds of one run and each call's mean host microseconds.
+    Before each run a 256 MiB write evicts the L2, so no run starts on
+    rows the one before left there; within a run, calls share the L2 as
+    in the flush.  With ``hide_host`` the card sleeps first, so the
+    window holds the device's time only; without it a run costs
+    whichever of host and card is slower."""
     import torch
 
-    kern_ms = bound_ms = gathered_ms = 0.0
-    variants: dict[str, int] = {}
-    for i, (args, kwargs) in enumerate(calls):
-        c = mws_call(args, kwargs)
+    scrub = torch.empty(L2_SCRUB_BYTES // 4, dtype=torch.int32, device="cuda")
+    for f in fns:  # warm-up
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in fns:
+        f()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    windows = []
+    host_us = [0.0] * len(fns)
+    for rep in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        scrub.fill_(rep)
+        if hide_host:
+            hold_card(host_s)
+        start.record()
+        for i, f in enumerate(fns):
+            t = time.perf_counter()
+            f()
+            host_us[i] += (time.perf_counter() - t) * 1e6 / reps
+        end.record()
+        windows.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.fmean(s.elapsed_time(e) for s, e in windows), host_us
+
+
+def b1_per_flush(calls: list, bw: float) -> dict:
+    """Every ``mws_gather`` call of one first flush, each held bit-exact
+    against its plain version at its own shape, then timed in the
+    flush's order (``replay_ms``): the device time of the whole list
+    against the sum of the distinct-row bounds; the same list with the
+    host's enqueue time not hidden; each call's host time per
+    variant; and, as a per-layer aside, the sum of each call repeated
+    alone (where the L2 holds a small call's rows from one repeat to the
+    next).  The time the gathered bytes would take and the calls per
+    variant stand beside them."""
+    import torch
+
+    cs = [mws_call(args, kwargs) for args, kwargs in calls]
+    for i, c in enumerate(cs):
         if not torch.equal(c["kern"](), c["plain"]()):
             raise AssertionError(f"mws call {i} ({c['shape']}): kernel != plain version")
-        kern_ms += time_ms(c["kern"], KERNEL_REPS)
-        bound_ms += c["bytes_min"] / bw * 1e3
-        gathered_ms += c["bytes_gathered"] / bw * 1e3
+    kerns = [c["kern"] for c in cs]
+    flush_ms, host_us = replay_ms(kerns, FLUSH_REPS)
+    host_ms, _ = replay_ms(kerns, FLUSH_REPS, hide_host=False)
+    bound_ms = sum(c["bytes_min"] for c in cs) / bw * 1e3
+    variants: dict[str, int] = {}
+    host_by_variant: dict[str, list[float]] = {}
+    for c, us in zip(cs, host_us):
         variants[c["variant"]] = variants.get(c["variant"], 0) + 1
+        host_by_variant.setdefault(c["variant"], []).append(us)
     return {
-        "calls_checked": len(calls),
-        "kernel_ms_sum": kern_ms,
+        "calls_checked": len(cs),
+        "flush_order_ms": flush_ms,
         "bound_ms_sum": bound_ms,
-        "gathered_ms_sum": gathered_ms,
-        "kernel_over_bound": kern_ms / bound_ms,
+        "flush_order_over_bound": flush_ms / bound_ms,
+        "flush_order_host_included_ms": host_ms,
+        "host_us_per_launch": {v: statistics.median(us) for v, us in host_by_variant.items()},
+        "repeat_alone_ms_sum": sum(time_ms(k, KERNEL_REPS) for k in kerns),
+        "gathered_ms_sum": sum(c["bytes_gathered"] for c in cs) / bw * 1e3,
         "calls_by_variant": variants,
     }
 
@@ -803,13 +871,13 @@ def b1_per_flush(calls: list, bw: float) -> dict:
 def kernel_report(rec, res: dict, card: str) -> list[dict]:
     """mws at the largest shape of the COUNT/MASK flush with the optimizer
     on and (row ``mws_optimizer_off``) off, each with that flush's
-    launches and beside the streaming variant and the row-fastest grid
-    control at the same shape; threshold and popcount at the largest
+    launches and beside the streaming variant at the same shape (the
+    grid-order control is tools/b1_grid_control.py); threshold and
+    popcount at the largest
     shapes of the COUNT/MASK flush with the optimizer on, and popcount at
     the largest (rows, W) of the flush with aggregates."""
     import torch
 
-    from repro_torch.kernels.mws import ops as mws_ops
     from repro_torch.kernels.popcount import popcount, popcount_ref
     from repro_torch.kernels.threshold import threshold_reduce, threshold_ref
 
@@ -821,15 +889,10 @@ def kernel_report(rec, res: dict, card: str) -> list[dict]:
         ("mws_optimizer_off", "mws_plain", "plain"),
     ):
         c = mws_call(*rec.largest(key, mws_size))
-        controls = {}
-        for label, variant in (
-            ("streaming", mws_ops.VARIANTS["streaming"]),
-            ("row_fastest", mws_ops.ROW_FASTEST),
-        ):
-            got, want = c["forced"](variant)(), c["plain"]()
-            if got.shape != want.shape or not torch.equal(got, want):
-                raise AssertionError(f"{name}: the {label} launch != plain version")
-            controls[f"{label}_ms"] = time_ms(c["forced"](variant), KERNEL_REPS)
+        got, want = c["streaming"](), c["plain"]()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{name}: the streaming launch != plain version")
+        del got, want
         rows.append(
             kernel_row(
                 name,
@@ -842,14 +905,13 @@ def kernel_report(rec, res: dict, card: str) -> list[dict]:
                 c["shape"],
                 variant=c["variant"],
                 variants_first_flush=res[setting]["mws_variants_first_flush"],
-                gathered_ms=c["bytes_gathered"] / bw * 1e3,
-                **controls,
+                streaming_ms=time_ms(c["streaming"], KERNEL_REPS),
             )
         )
         log(
-            f"kernel {name}: indexes {c['bytes_gathered']} bytes of rows and outputs; "
-            f"its bound counts {c['bytes_min']} bytes and {c['ops']} operations; "
-            f"{c['variant']} variant; {controls}"
+            f"kernel {name}: indexes {c['bytes_gathered']} bytes of rows and outputs "
+            f"({c['bytes_gathered'] / bw * 1e3:.4f} ms at {bw / 1e12} TB/s); its bound "
+            f"counts {c['bytes_min']} bytes and {c['ops']} operations; {c['variant']} variant"
         )
     for name, key in (
         ("threshold", "threshold_optimize"),
@@ -1255,6 +1317,9 @@ def majority_phase(n: int, card: str) -> dict:
             raise AssertionError(f"majority K={k}: kernel != plain version")
     del votes
     RW = layout.rows * layout.words
+    small = min(VOTERS)
+    log(f"kernel majority: K={small} moves {4 * (small + 1) * RW} bytes "
+        f"({4 * (small + 1) * RW / hbm_rate(card) * 1e3:.4f} ms at the HBM rate)")
     counter_planes = next(p for p, most in ((3, 7), (4, 15), (8, 255), (16, 65535)) if K <= most)
     row = kernel_row(
         "majority",
@@ -1267,9 +1332,8 @@ def majority_phase(n: int, card: str) -> dict:
         f"stacks ({K}, {layout.rows}, {layout.words}) -> ({layout.rows}, {layout.words})",
         path=f"votes of K={list(VOTERS)} replica planes; no program path on one card",
         # the smaller vote, an even K (ties vote 1), timed beside it
-        smaller_k=min(VOTERS),
-        smaller_k_ms=time_ms(lambda: majority_vote(planes[: min(VOTERS)]), KERNEL_REPS),
-        smaller_k_bound_ms=4 * (min(VOTERS) + 1) * RW / hbm_rate(card) * 1e3,
+        smaller_k=small,
+        smaller_k_ms=time_ms(lambda: majority_vote(planes[:small]), KERNEL_REPS),
     )
     del planes
     return row

@@ -47,20 +47,21 @@
 //   A row shared by many plans is read from HBM once per tile.  Per-plan
 //   spill rows (ext) are read once anyway, straight from global memory.
 //   T adapts on the device to the distinct count, so a stage stays about
-//   48 KiB whatever the launch names.  When W or a base pointer is not
-//   16-byte aligned, the stages fill with 4-byte cp.async instead.
-//
-// A third launch order, the streaming kernel with the output row fastest
-// in the grid, exists only as a measurement control (chip_smoke.py): it
-// shows what the L2 alone recovers of the repeated reads.
+//   48 KiB whatever the launch names.  It needs W a multiple of 4 and
+//   16-byte aligned bases (the serving path's pages always are); the
+//   wrapper sends any other launch to the streaming kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace {
 
 enum { OP_AND = 0, OP_OR = 1, OP_XOR = 2 };
-enum { VARIANT_STREAMING = 0, VARIANT_STAGED = 1, VARIANT_ROW_FASTEST = 2 };
+enum { VARIANT_STREAMING = 0, VARIANT_STAGED = 1 };
 
 // The staged variant's shared memory: a 128-byte header (two mbarriers
 // and the distinct count), two stages, the entry table, then the name ->
@@ -73,6 +74,7 @@ constexpr int kMaxTile = 4096;           // words per row per tile
 constexpr int kStageWords = 12288;       // at least 48 KiB a stage
 constexpr int kTableEntries = 2048;      // (output, block, wordline) entries
 constexpr int kMaxSmemBytes = 232448;    // what one block may use (227 KB)
+constexpr int kMaxDevices = 64;
 
 template <int OP>
 __device__ __forceinline__ uint32_t fold(uint32_t a, uint32_t b) {
@@ -128,7 +130,7 @@ struct Words {
 
 // -- streaming -------------------------------------------------------------
 
-template <int OP, int VEC, bool ROW_FASTEST>
+template <int OP, int VEC>
 __global__ void mws_gather_kernel(const uint32_t* __restrict__ src,
                                   const uint32_t* __restrict__ ext,
                                   const uint32_t* __restrict__ shr,
@@ -136,10 +138,9 @@ __global__ void mws_gather_kernel(const uint32_t* __restrict__ src,
                                   uint32_t* __restrict__ out, int K, int N,
                                   long long W, int m_ext, int outer_or,
                                   int invert) {
-  const unsigned col_block = ROW_FASTEST ? blockIdx.y : blockIdx.x;
-  const long long w0 = ((long long)col_block * blockDim.x + threadIdx.x) * VEC;
+  const long long w0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
   if (w0 >= W) return;
-  const int row_out = ROW_FASTEST ? blockIdx.x : blockIdx.y;  // b or b * K + k
+  const int row_out = blockIdx.y;  // b, or b * K + k
   const int b = outer_or ? row_out : row_out / K;
   const int k_begin = outer_or ? 0 : row_out % K;
   const int k_end = outer_or ? K : k_begin + 1;
@@ -176,7 +177,7 @@ __global__ void mws_gather_kernel(const uint32_t* __restrict__ src,
   acc_out.store(out + (long long)row_out * W + w0);
 }
 
-template <int OP, int VEC, bool ROW_FASTEST>
+template <int OP, int VEC>
 cudaError_t launch_streaming(const uint32_t* src, const uint32_t* ext,
                              const uint32_t* shr, const int32_t* idx,
                              uint32_t* out, int B, int K, int N, long long W,
@@ -185,11 +186,8 @@ cudaError_t launch_streaming(const uint32_t* src, const uint32_t* ext,
   const int threads = 256;
   const long long groups = (W + VEC - 1) / VEC;
   const long long col_blocks = (groups + threads - 1) / threads;
-  const unsigned rows = (unsigned)(outer_or ? B : B * K);
-  if (ROW_FASTEST && col_blocks > 65535) return cudaErrorInvalidValue;
-  const dim3 grid = ROW_FASTEST ? dim3(rows, (unsigned)col_blocks)
-                                : dim3((unsigned)col_blocks, rows);
-  mws_gather_kernel<OP, VEC, ROW_FASTEST><<<grid, threads, 0, stream>>>(
+  const dim3 grid((unsigned)col_blocks, (unsigned)(outer_or ? B : B * K));
+  mws_gather_kernel<OP, VEC><<<grid, threads, 0, stream>>>(
       src, ext, shr, idx, out, K, N, W, m_ext, outer_or, invert);
   return cudaGetLastError();
 }
@@ -237,12 +235,7 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       : "memory");
 }
 
-__device__ __forceinline__ void copy4_async(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
-               : "memory");
-}
-
-template <int OP, int VEC>
+template <int OP>
 __global__ void __launch_bounds__(kStagedThreads)
     mws_staged_kernel(const uint32_t* __restrict__ src,
                       const uint32_t* __restrict__ ext,
@@ -321,29 +314,20 @@ __global__ void __launch_bounds__(kStagedThreads)
     return name < S ? src + (long long)name * W : shr + (long long)(name - S) * W;
   };
 
-  // Fill stage `s` with tile t of every distinct row.
+  // Fill stage `s` with tile t of every distinct row (W % 4 == 0, so a
+  // tile's bytes are a multiple of 16).
   auto issue = [&](long long t, int s) {
+    if (tid >= 32) return;
     const long long t0 = t * T;
     const int len = (int)(W - t0 < T ? W - t0 : T);
     uint32_t* dst = stages + (long long)s * stage_words;
-    if (VEC == 4) {
-      if (tid < 32) {
-        const uint32_t bar = smem_addr(&bars[s]);
-        if (tid == 0) mbar_expect(bar, (uint32_t)D * len * 4u);
-        __syncwarp();
-        // the stage was last read through the generic proxy
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        for (int p = tid; p < D; p += 32)
-          bulk_copy(smem_addr(dst + p * T), row_of(name_at[p]) + t0, len * 4u, bar);
-      }
-    } else {
-      for (int e = tid; e < D * len; e += kStagedThreads) {
-        const int p = e / len;
-        const int w = e - p * len;
-        copy4_async(smem_addr(dst + p * T + w), row_of(name_at[p]) + t0 + w);
-      }
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-    }
+    const uint32_t bar = smem_addr(&bars[s]);
+    if (tid == 0) mbar_expect(bar, (uint32_t)D * len * 4u);
+    __syncwarp();
+    // the stage was last read through the generic proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int p = tid; p < D; p += 32)
+      bulk_copy(smem_addr(dst + p * T), row_of(name_at[p]) + t0, len * 4u, bar);
   };
 
   const uint32_t ident = OP == OP_AND ? 0xFFFFFFFFu : 0u;
@@ -354,20 +338,12 @@ __global__ void __launch_bounds__(kStagedThreads)
   for (int j = 0; t < ntiles; ++j, t += gridDim.x) {
     const int s = j & 1;
     const long long t_next = t + gridDim.x;
-    if (t_next < ntiles) {
-      issue(t_next, s ^ 1);
-    } else if (VEC != 4) {
-      asm volatile("cp.async.commit_group;\n" ::: "memory");  // keep the count
-    }
-    if (VEC == 4) {
-      mbar_wait(smem_addr(&bars[s]), (uint32_t)(j >> 1) & 1u);
-    } else {
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    }
+    if (t_next < ntiles) issue(t_next, s ^ 1);
+    mbar_wait(smem_addr(&bars[s]), (uint32_t)(j >> 1) & 1u);
 
     const long long t0 = t * T;
     const int len = (int)(W - t0 < T ? W - t0 : T);
-    const int groups = len / VEC;  // VEC == 4 only when W % 4 == 0
+    const int groups = len / 4;
     const uint32_t* stage = stages + (long long)s * stage_words;
     for (int c = 0; c < n_chunks; ++c) {
       const int o0 = c * chunk;
@@ -376,20 +352,20 @@ __global__ void __launch_bounds__(kStagedThreads)
         __syncthreads();  // the previous chunk's table is read
         fill(o0, o1);
       }
-      __syncthreads();  // the table, and a cp.async stage, are visible
+      __syncthreads();  // the table is visible
       for (int item = tid; item < (o1 - o0) * groups; item += kStagedThreads) {
         const int ol = item / groups;
-        const int g = (item - ol * groups) * VEC;
+        const int g = (item - ol * groups) * 4;
         const int o = o0 + ol;
         const int* entry = table + ol * per_out;
-        Words<VEC> acc_out;
+        Words<4> acc_out;
         acc_out.fill(0u);
         for (int k = 0; k < per_block; ++k) {
-          Words<VEC> acc;
+          Words<4> acc;
           acc.fill(ident);
           for (int n = 0; n < N; ++n) {
             const int v = entry[k * N + n];
-            Words<VEC> x;
+            Words<4> x;
             if (v >= 0) {
               x.load_shared(stage + v + g);
             } else {
@@ -397,14 +373,14 @@ __global__ void __launch_bounds__(kStagedThreads)
               x.load(ext + ((long long)b * m_ext + (-1 - v)) * W + t0 + g);
             }
 #pragma unroll
-            for (int i = 0; i < VEC; ++i) acc.v[i] = fold<OP>(acc.v[i], x.v[i]);
+            for (int i = 0; i < 4; ++i) acc.v[i] = fold<OP>(acc.v[i], x.v[i]);
           }
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc_out.v[i] |= acc.v[i];
+          for (int i = 0; i < 4; ++i) acc_out.v[i] |= acc.v[i];
         }
         if (invert) {
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc_out.v[i] = ~acc_out.v[i];
+          for (int i = 0; i < 4; ++i) acc_out.v[i] = ~acc_out.v[i];
         }
         acc_out.store_streaming(out + (long long)o * W + t0 + g);
       }
@@ -427,7 +403,44 @@ long long staged_smem_bytes(int S, int m_shr, long long entries, int* stage_word
   return bytes;
 }
 
-template <int OP, int VEC>
+// The CTAs of one wave of mws_staged_kernel<OP> at `smem` bytes on the
+// current device.  The function attribute, the SM count and the occupancy
+// are asked of the runtime once per device and size: on a flush whose
+// time the host sets, four runtime calls a launch would cost more than
+// the staging saves.
+template <int OP>
+cudaError_t staged_wave(long long smem, long long* ctas) {
+  static std::mutex mu;
+  static int smem_raised[kMaxDevices];  // the max dynamic smem set so far
+  static std::map<std::pair<int, long long>, long long> wave;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  auto kernel = mws_staged_kernel<OP>;
+  if (smem > smem_raised[dev]) {
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)))
+      return err;
+    smem_raised[dev] = (int)smem;
+  }
+  auto it = wave.find({dev, smem});
+  if (it == wave.end()) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kStagedThreads, (size_t)smem)))
+      return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    it = wave.emplace(std::make_pair(dev, smem), (long long)per_sm * sms).first;
+  }
+  *ctas = it->second;
+  return cudaSuccess;
+}
+
+template <int OP>
 cudaError_t launch_staged(const uint32_t* src, const uint32_t* ext,
                           const uint32_t* shr, const int32_t* idx,
                           uint32_t* out, int S, int B, int K, int N,
@@ -436,24 +449,14 @@ cudaError_t launch_staged(const uint32_t* src, const uint32_t* ext,
   int stage_words = 0;
   const long long smem = staged_smem_bytes(S, m_shr, (long long)B * K * N, &stage_words);
   if (!smem || (outer_or ? K : 1) * N > kTableEntries) return cudaErrorInvalidValue;
-  auto kernel = mws_staged_kernel<OP, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  long long ctas = 0;
+  cudaError_t err = staged_wave<OP>(smem, &ctas);
   if (err) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev))) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kStagedThreads, (size_t)smem)))
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   // persistent: at most one wave, and no more CTAs than the narrowest
   // tiling has tiles
   const long long max_tiles = (W + kTileQuantum - 1) / kTileQuantum;
-  const long long ctas = (long long)per_sm * sms;
   const unsigned grid = (unsigned)(ctas < max_tiles ? ctas : max_tiles);
-  kernel<<<grid, kStagedThreads, (size_t)smem, stream>>>(
+  mws_staged_kernel<OP><<<grid, kStagedThreads, (size_t)smem, stream>>>(
       src, ext, shr, idx, out, S, B, K, N, W, m_ext, m_shr, outer_or, invert,
       stage_words, kTableEntries);
   return cudaGetLastError();
@@ -464,16 +467,13 @@ cudaError_t launch(int variant, const uint32_t* src, const uint32_t* ext,
                    const uint32_t* shr, const int32_t* idx, uint32_t* out,
                    int S, int B, int K, int N, long long W, int m_ext,
                    int m_shr, int outer_or, int invert, cudaStream_t stream) {
-  switch (variant) {
-    case VARIANT_STREAMING:
-      return launch_streaming<OP, VEC, false>(src, ext, shr, idx, out, B, K, N, W,
-                                              m_ext, outer_or, invert, stream);
-    case VARIANT_STAGED:
-      return launch_staged<OP, VEC>(src, ext, shr, idx, out, S, B, K, N, W, m_ext,
-                                    m_shr, outer_or, invert, stream);
-    case VARIANT_ROW_FASTEST:
-      return launch_streaming<OP, VEC, true>(src, ext, shr, idx, out, B, K, N, W,
-                                             m_ext, outer_or, invert, stream);
+  if (variant == VARIANT_STREAMING)
+    return launch_streaming<OP, VEC>(src, ext, shr, idx, out, B, K, N, W, m_ext,
+                                     outer_or, invert, stream);
+  if constexpr (VEC == 4) {
+    if (variant == VARIANT_STAGED)
+      return launch_staged<OP>(src, ext, shr, idx, out, S, B, K, N, W, m_ext, m_shr,
+                               outer_or, invert, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -502,9 +502,8 @@ cudaError_t launch_op(int op, int variant, const uint32_t* src,
 
 // S: rows of src; m_ext: ext rows per batch row; m_shr: shared rows.
 // op: 0 = AND, 1 = OR, 2 = XOR.  vec: 4 (W % 4 == 0, 16-byte aligned
-// bases) or 1.  variant: 0 = streaming, 1 = staged, 2 = streaming with
-// the output row fastest (a measurement control).  Returns the launch's
-// cudaError_t (0 on success).
+// bases) or 1.  variant: 0 = streaming, 1 = staged (vec 4 only).
+// Returns the launch's cudaError_t (0 on success).
 extern "C" int mws_gather_launch(const void* src, const void* ext,
                                  const void* shr, const void* idx, void* out,
                                  int S, int B, int K, int N, long long W,

@@ -22,7 +22,6 @@ from repro_torch.kernels.mws.ref import mws_gather_ref
 _OP_CODES = {BitOp.AND: 0, BitOp.OR: 1, BitOp.XOR: 2}
 _MAX_GRID_Y = 65535
 VARIANTS = {"streaming": 0, "staged": 1}
-ROW_FASTEST = 2  # the streaming kernel, output row fastest: a measurement control
 
 # The staged variant's shared memory (csrc/mws.cu: staged_smem_bytes): a
 # 128-byte header, two stages of at least 128 words for every row a launch
@@ -46,9 +45,17 @@ def staged_fits(S: int, m_shr: int, entries: int, per_out: int) -> bool:
 
 
 def choose_variant(
-    S: int, B: int, K: int, N: int, m_ext: int, m_shr: int, outer_or: bool = True
+    S: int,
+    B: int,
+    K: int,
+    N: int,
+    m_ext: int,
+    m_shr: int,
+    outer_or: bool = True,
+    vec: int = 4,
 ) -> str:
-    """The kernel variant for a launch, from shapes alone.
+    """The kernel variant for a launch, from shapes alone (and ``vec``,
+    the access width :func:`repro_torch.kernels._build.vec_width` gives).
 
     A row named by several output rows costs the streaming kernel one
     HBM read per output row that names it, unless the L2 still holds it;
@@ -56,23 +63,25 @@ def choose_variant(
     the staged kernel runs where rows can repeat — the launch has more
     than one output row, or names more rows (B·K·N) than there are
     distinct rows it could name — and where its rows fit the two
-    stages.  Otherwise the streaming kernel runs: a single output row
-    (one plan, or ``mws_reduce``'s identity indices), a store too wide to
-    stage, or outputs that each fold one row of their own plan's spill
-    scratch (K·N = 1 beside ext rows: nothing repeats, and a spill row is
-    read from global memory either way).  The choice never looks at
-    idx's values, so it needs no host sync.
+    stages.  Its stages fill with 16-byte bulk copies, so it also needs
+    ``vec`` 4 (W a multiple of 4, aligned bases; the serving path's
+    pages always are).  Otherwise the streaming kernel runs: a single
+    output row (one plan, or ``mws_reduce``'s identity indices), a store
+    too wide to stage, a ragged W, or outputs that each fold one row of
+    their own plan's spill scratch (K·N = 1 beside ext rows: nothing
+    repeats, and a spill row is read from global memory either way).
+    The choice never looks at idx's values, so it needs no host sync.
     """
     n_out = B if outer_or else B * K
     spill_only = K * N == 1 and m_ext > 0
     repeats = (n_out > 1 and not spill_only) or B * K * N > S + B * m_ext + m_shr
     per_out = (K if outer_or else 1) * N
-    if repeats and staged_fits(S, m_shr, B * K * N, per_out):
+    if vec == 4 and repeats and staged_fits(S, m_shr, B * K * N, per_out):
         return "staged"
     return "streaming"
 
 
-def _launch(src, idx, op, outer_or, invert, ext, shr, out, variant: int) -> None:
+def _launch(src, idx, op, outer_or, invert, ext, shr, out, vec: int, variant: int) -> None:
     B, K, N = idx.shape
     _build.launch(
         "mws_gather_launch",
@@ -91,7 +100,7 @@ def _launch(src, idx, op, outer_or, invert, ext, shr, out, variant: int) -> None
         _OP_CODES[op],
         int(outer_or),
         int(invert),
-        _build.vec_width(src.shape[1], src, ext, shr, out),
+        vec,
         variant,
     )
 
@@ -147,6 +156,7 @@ def mws_gather(
         return out
     if (B if outer_or else B * K) > _MAX_GRID_Y:
         raise ValueError(f"batch {B} x blocks {K} exceeds the launch grid")
+    vec = _build.vec_width(W, src, ext, shr, out)
     variant = choose_variant(
         src.shape[0],
         B,
@@ -155,8 +165,9 @@ def mws_gather(
         0 if ext is None else ext.shape[1],
         0 if shr is None else shr.shape[0],
         outer_or,
+        vec,
     )
-    _launch(src, idx, op, outer_or, invert, ext, shr, out, VARIANTS[variant])
+    _launch(src, idx, op, outer_or, invert, ext, shr, out, vec, VARIANTS[variant])
     mws_gather.launches += 1
     mws_gather.variant_launches[variant] += 1
     return out

@@ -175,7 +175,7 @@ def test_wrappers_reject_bad_arguments():
         mws_reduce(x[:0], BitOp.AND)
 
 
-# (S, B, K, N, m_ext, m_shr, outer_or) -> the variant B1's wrapper launches
+# (S, B, K, N, m_ext, m_shr, outer_or[, vec]) -> the variant B1's wrapper launches
 _VARIANT_CASES = [
     ((365, 1, 1, 365, 0, 0, True), "streaming"),  # mws_reduce at d = 365 (B1 + B2)
     ((30, 1, 1, 30, 0, 0, True), "streaming"),  # mws_reduce at d = 30: one output row
@@ -190,6 +190,8 @@ _VARIANT_CASES = [
     ((20_000, 45, 2, 2, 0, 0, True), "streaming"),  # a store too wide to stage
     ((64, 2, 1, 2049, 0, 0, True), "streaming"),  # an output's entries past the table
     ((9, _MAX_GRID_Y // 5, 5, 1, 0, 0, False), "staged"),  # B*K at the grid limit
+    ((64, 45, 2, 2, 0, 0, True, 1), "streaming"),  # the largest group at a ragged W
+    ((9, 40, 2, 2, 0, 0, False, 1), "streaming"),  # many plans over few rows, ragged W
 ]
 
 
@@ -286,13 +288,11 @@ def _staged_cases(cuda, w):
     }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("w", [1, 127, 2049, 4100])
-@pytest.mark.parametrize("case", ["few rows", "capacity", "ext+shr", "grid limit"])
-def test_mws_staged_kernel_matches_plain(cuda, w, case):
-    """W ragged (127, 2049: 4-byte cp.async stages), smaller than a tile
-    (1, 127), or a multiple of 4 with a ragged last tile (4100: TMA bulk
-    copies); the per-block form; each launch moves the staged counter."""
+_STAGED_CASES = ["few rows", "capacity", "ext+shr", "grid limit"]
+_FULL_WIDTH = 4_194_304  # one 16 MiB page
+
+
+def _check_variant(cuda, w, case, variant):
     src, idx, ext, shr = _staged_cases(cuda, w)[case]
     for op in (BitOp.AND, BitOp.OR, BitOp.XOR):
         for outer_or in (True, False) if case != "grid limit" else (False,):
@@ -300,9 +300,31 @@ def test_mws_staged_kernel_matches_plain(cuda, w, case):
             before = dict(mws_gather.variant_launches)
             total = mws_gather.launches
             got = mws_gather(src, idx, op, **kw)
-            assert mws_gather.variant_launches == before | {"staged": before["staged"] + 1}
+            assert mws_gather.variant_launches == before | {variant: before[variant] + 1}
             assert mws_gather.launches == total + 1
             assert torch.equal(got, mws_gather_ref(src, idx, op, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "w,case",
+    [(4100, c) for c in _STAGED_CASES] + [(_FULL_WIDTH, c) for c in _STAGED_CASES[:3]],
+)
+def test_mws_staged_kernel_matches_plain(cuda, w, case):
+    """A ragged last tile (4100) and a full page (its B*K grid-limit case
+    would write 1 TB); the per-block form; each launch moves the staged
+    counter."""
+    _check_variant(cuda, w, case, "staged")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 127, 2049])
+@pytest.mark.parametrize("case", _STAGED_CASES)
+def test_mws_staged_shapes_at_a_ragged_width_stream(cuda, w, case):
+    """The staged shapes at a W that is not a multiple of 4 take the
+    streaming kernel (the stages fill with 16-byte copies) and move only
+    its counter."""
+    _check_variant(cuda, w, case, "streaming")
 
 
 @pytest.mark.cuda
