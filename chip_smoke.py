@@ -12,7 +12,11 @@ drives the port's three paths on the card:
 1. FlashQL: the paper's BMI workload (COUNT and MASK queries through
    ``BatchScheduler``) over a 2^27-row bitmap index, then the same flush
    with SUM/AVG/MIN/MAX/TOP-K/GROUP BY queries beside it, every answer
-   checked against numpy (kernels mws, popcount, threshold);
+   checked against numpy (kernels mws, popcount, threshold); then the
+   live index at the same page size: appends, coalesced appends, deletes,
+   an update, a delete wave and a compaction, with the flush served and
+   checked against numpy after every step and the device snapshot
+   written in place (``mutation_path``);
 2. the one-pass BMI count (kernel mws_count): users active on every one
    of the last 30 and 365 days at the paper's 800M users, held against
    the plain version and against mws + popcount, run when nothing else is
@@ -197,25 +201,35 @@ def build_aggregates(q, seed: int) -> list:
 
 
 class Oracle:
-    """numpy answers.  Every predicate here depends only on the
-    (country, device) pair, so every aggregate follows from the table's
-    joint (country, device, price) histogram of 8 x 4 x NUM_PRICES cells;
-    masks are checked on a sampled row slice."""
+    """numpy answers.  Every predicate here depends only on the (country,
+    device) pair, so every aggregate follows from the live rows' joint
+    (country, device, price) histogram over 8 countries x ``devices``
+    devices x the price ``points``; ``add`` keeps it up to date as rows
+    are appended (+1) or deleted (-1).  Masks are checked on sampled word
+    slices of the resident rows (``resident``), where tombstoned rows and
+    the reserved tail past the last row must read zero."""
 
-    def __init__(self, table, words: int):
-        self.table = table
+    def __init__(self, table, words: int, devices: int | None = None, points=None):
         self.words = words
+        self.nd = int(table["device"].max()) + 1 if devices is None else devices
+        self.points = np.unique(table["price"]) if points is None else np.sort(points)
+        self.hist3 = np.zeros((8 * self.nd, len(self.points)), np.int64)
+        cells = np.arange(8 * self.nd)
+        self.cells = {"country": cells // self.nd, "device": cells % self.nd}
+        self.resident(table)
+        self.add(table)
+
+    def resident(self, table, live=None) -> None:
+        """The rows MASKs cover, in row order; ``live`` False marks a
+        tombstoned row (None: every row is live)."""
+        self.table, self.live = table, live
         self.rows = len(table["country"])
-        price = table["price"].astype(np.int64)
-        self.points = np.flatnonzero(np.bincount(price))  # distinct prices, sorted
-        p = len(self.points)
-        lut = np.zeros(self.points[-1] + 1, np.int64)
-        lut[self.points] = np.arange(p)
-        price_ix = lut[price]
-        cell = (table["country"].astype(np.int64) * 4 + table["device"]) * p + price_ix
-        self.hist3 = np.bincount(cell, minlength=32 * p).reshape(32, p)
-        cells = np.arange(32)
-        self.cells = {"country": cells // 4, "device": cells % 4}
+
+    def add(self, rows, sign: int = 1) -> None:
+        """Count ``rows`` into the live histogram (``sign=-1`` removes)."""
+        price_ix = np.searchsorted(self.points, rows["price"])
+        cell = (rows["country"].astype(np.int64) * self.nd + rows["device"]) * len(self.points) + price_ix
+        self.hist3 += sign * np.bincount(cell, minlength=self.hist3.size).reshape(self.hist3.shape)
 
     def answer(self, query):
         """The exact answer of a COUNT/SUM/AVG/MIN/MAX/TOP-K/GROUP BY query
@@ -224,8 +238,8 @@ class Oracle:
         from repro_torch.query.oracle import np_select
 
         spec = normalize_agg(query.agg)
-        sel = np_select(query.where, self.cells, 32)
-        h = np.where(sel[:, None], self.hist3, 0)  # (32, P)
+        sel = np_select(query.where, self.cells, 8 * self.nd)
+        h = np.where(sel[:, None], self.hist3, 0)  # (cells, P)
         points = [int(v) for v in self.points]
 
         def inner(hp, agg):  # hp: (P,) counts per price point
@@ -246,7 +260,7 @@ class Oracle:
 
         if isinstance(spec, (TopK, GroupBy)):
             col = spec.column if isinstance(spec, TopK) else spec.key
-            per = h.reshape(8, 4, -1).sum(axis=1 if col == "country" else 0)  # (values, P)
+            per = h.reshape(8, self.nd, -1).sum(axis=1 if col == "country" else 0)  # (values, P)
             if isinstance(spec, TopK):
                 ranked = sorted(
                     ((v, int(c)) for v, c in enumerate(per.sum(axis=1))), key=lambda vc: (-vc[1], vc[0])
@@ -260,12 +274,16 @@ class Oracle:
 
         lo = start_word * 32
         hi = min(self.rows, (start_word + n_words) * 32)
-        part = {c: v[lo:hi] for c, v in self.table.items()}
-        want = np_select(pred, part, hi - lo)
+        want = np.zeros(n_words * 32, bool)
+        if hi > lo:
+            part = {c: v[lo:hi] for c, v in self.table.items()}
+            want[: hi - lo] = np_select(pred, part, hi - lo)
+            if self.live is not None:
+                want[: hi - lo] &= self.live[lo:hi]
         got = np.unpackbits(
             np.ascontiguousarray(words[start_word : start_word + n_words]).view(np.uint8),
             bitorder="little",
-        )[: hi - lo].astype(bool)
+        ).astype(bool)
         if not np.array_equal(got, want):
             raise AssertionError(f"MASK words differ from numpy for {pred!r}")
 
@@ -699,6 +717,309 @@ def main_path(device, rows: int, log=log) -> dict:
     finally:
         dev_mod.mws_gather, dev_mod.threshold_reduce, agg_mod.popcount = orig
     out["recorded"] = rec
+    return out
+
+
+# -- phase 3b: the live index ---------------------------------------------------
+
+NEW_DEVICE = 4  # first-seen in append 4: a new equality page, device's BSI 2 -> 3
+NEW_PRICE = 20_000  # first-seen in append 4: price's BSI 14 -> 15
+DELETE_FRAC = 0.40  # benchmarks/flashql_compaction.py:44
+
+
+def make_batch(rng, b: int, points, devices: int = 4) -> dict[str, np.ndarray]:
+    """``b`` appended rows drawn as make_table draws its rows: countries
+    0..7, devices below ``devices``, prices from ``points``."""
+    return {
+        "country": rng.integers(0, 8, b, dtype=np.uint8),
+        "device": rng.integers(0, devices, b, dtype=np.uint8),
+        "price": points[rng.integers(0, len(points), b)],
+    }
+
+
+def mutation_path(device, rows: int, card: str | None = None, log=log) -> dict:
+    """FlashQL's live index: pages of ``rows`` rows (the main path's), a
+    table of 7/8 of them ingested with the last 1/8 reserved, then, under
+    one optimizing BatchScheduler: eight appends of rows/128 (the fourth
+    brings device NEW_DEVICE and price NEW_PRICE: four new pages), four
+    coalesced appends of rows/512, a delete of rows/128 live rows, an
+    update of rows/2048, a delete wave up to DELETE_FRAC, compact(), and
+    one more append of rows/128.  After every step the COUNT/MASK flush
+    of build_queries is served (with build_aggregates after append 4,
+    compact() and the last append) and checked against numpy on the live
+    rows; every B1 call of the first flush after append 4 and after
+    compact() is held against its plain version.  One JSON line per step
+    gives the mutation's seconds, the bytes it programmed and wrote into
+    the device snapshot, the snapshot's whole uploads and the flush; then
+    the reference's design (a whole upload per write) is timed against
+    the delta writes of one append.  Kernel launch counts are set to 0
+    just before the phase; those of the checks are left out."""
+    import torch
+
+    from repro_torch import query as q
+    from repro_torch.core.bitops import to_words
+    from repro_torch.core.store import PackedStore
+    from repro_torch.kernels.mws import mws_gather
+    from repro_torch.kernels.popcount import popcount
+    from repro_torch.kernels.threshold import threshold_reduce
+    from repro_torch.query import aggregate as agg_mod
+    from repro_torch.query import device as dev_mod
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    reserve = rows // 8
+    n0 = rows - reserve
+    unit = rows // 128
+    rng = np.random.default_rng(SEED + 7)
+    t0 = time.perf_counter()
+    table = make_table(n0, SEED + 7)
+    points = np.unique(table["price"])
+    store = q.BitmapStore()
+    store.ingest(table, reserve_rows=reserve)
+    queries = build_queries(q, SEED)
+    mixed = queries + build_aggregates(q, SEED)
+    dev = q.FlashDevice(num_planes=4, device=device)
+    store.program(dev, warmup=queries[:3])
+    dev.store.snapshot(dev.device)
+    sched = q.BatchScheduler(dev, store, optimize=True, max_batch=256)
+    # the resident rows at capacity, and which are live, for numpy
+    res = {c: np.zeros(rows, v.dtype) for c, v in table.items()}
+    for c, v in table.items():
+        res[c][:n0] = v
+    live = np.zeros(rows, bool)
+    live[:n0] = True
+    oracle = Oracle(table, store.words, devices=NEW_DEVICE + 1, points=np.append(points, NEW_PRICE))
+    del table
+    n = n0
+    log(
+        f"mutation path: {n0} rows + {reserve} reserved, {store.words} words/page, "
+        f"{dev.store.num_slots} slots, {time.perf_counter() - t0:.3f} s"
+    )
+
+    # in-place snapshot writes (words and host seconds), and the aggregate
+    # extras each flush uploads
+    wt = {"words": 0, "s": 0.0}
+    fetched = {"bytes": 0}
+    orig = (PackedStore._write_through, agg_mod.fetch_pages, dev_mod.mws_gather)
+
+    def write_through(self, slot, start, stop):
+        t = time.perf_counter()
+        orig[0](self, slot, start, stop)
+        if self._dev_buf is not None:
+            sync()
+            wt["words"] += stop - start
+            wt["s"] += time.perf_counter() - t
+
+    def fetch_pages(store_, names, device_):
+        out = orig[1](store_, names, device_)
+        fetched["bytes"] += out.numel() * 4
+        return out
+
+    rec = Recorder()
+    PackedStore._write_through = write_through
+    agg_mod.fetch_pages = fetch_pages
+    dev_mod.mws_gather = rec.wrap("mws", mws_gather)
+    kernels = {"mws": mws_gather, "threshold": threshold_reduce, "popcount": popcount}
+    launches = dict.fromkeys(kernels, 0)
+
+    def take_launches(keep: bool):
+        for k, fn in kernels.items():
+            if keep:
+                launches[k] += fn.launches
+            fn.launches = 0
+
+    def serve(label, qs, check_b1):
+        st0 = sched.stats()
+        up0 = fetched["bytes"]
+        rec.tag, rec.active = f"_{label}", check_b1
+        t = time.perf_counter()
+        results = sched.serve(qs)
+        first = time.perf_counter() - t
+        rec.active = False
+        take_launches(True)
+        oracle.resident({c: v[:n] for c, v in res.items()}, live[:n])
+        check_results(qs, results, oracle, mask_sample=4096)
+        st = sched.stats()
+        out = {
+            "queries": len(qs),
+            "first_flush_s": first,
+            **{k: st[k] - st0[k] for k in ("plan_cache_hits", "plan_cache_misses", "mws_commands")},
+            "extras_upload_bytes": fetched["bytes"] - up0,
+        }
+        if check_b1:
+            calls = rec.calls.pop(f"mws_{label}")
+            for i, (args, kwargs) in enumerate(calls):
+                c = mws_call(args, kwargs)
+                if not torch.equal(c["kern"](), c["plain"]()):
+                    raise AssertionError(f"{label}: mws call {i} ({c['shape']}): kernel != plain version")
+            sync()
+            take_launches(False)
+            out["b1_calls_checked"] = len(calls)
+        return out
+
+    steps = []
+    clock = {"s": 0.0}
+
+    def timed(call, *args):
+        """Run one mutation call, its seconds added to the step's."""
+        t = time.perf_counter()
+        out = call(*args)
+        sync()
+        clock["s"] += time.perf_counter() - t
+        return out
+
+    def step(name, fn, qs=queries, check_b1=False):
+        st0 = sched.stats()
+        wp0, wt0 = int(sched.words_programmed), dict(wt)
+        clock["s"] = 0.0
+        extra = fn() or {}
+        wt1 = dict(wt)
+        flush = serve(name, qs, check_b1)
+        st = sched.stats()
+        line = {
+            "step": name,
+            "seconds": clock["s"],
+            "bytes_programmed": (int(sched.words_programmed) - wp0) * 4,
+            # written into the snapshot by the mutation calls, and by the
+            # flush (coalesced appends, rebuilt materialized pages)
+            "snapshot_bytes_written": (wt1["words"] - wt0["words"]) * 4,
+            "snapshot_write_s": wt1["s"] - wt0["s"],
+            "flush_snapshot_bytes_written": (wt["words"] - wt1["words"]) * 4,
+            "snapshot_uploads": dev.store.snapshot_uploads,
+            "esp_delta_programs": st["esp_delta_programs"] - st0["esp_delta_programs"],
+            "rows": store.num_rows,
+            "live_rows": store.live_rows,
+            "slots": dev.store.num_slots,
+            **flush,
+            **extra,
+        }
+        steps.append(line)
+        log(json.dumps({"mutation_step": line, **({"card": card} if card else {})}))
+        return line
+
+    def append(b, devices=NEW_DEVICE + 1, first_seen=False):
+        nonlocal n
+        batch = make_batch(rng, b, np.append(points, NEW_PRICE) if devices > 4 else points, devices)
+        if first_seen:
+            batch["device"][::8] = NEW_DEVICE
+            batch["price"][::16] = NEW_PRICE
+        timed(sched.append, batch)
+        for c, v in batch.items():
+            res[c][n : n + b] = v
+        live[n : n + b] = True
+        n += b
+        oracle.add(batch)
+
+    def delete(ids):
+        timed(sched.delete, ids)
+        live[ids] = False
+        oracle.add({c: v[ids] for c, v in res.items()}, -1)
+
+    try:
+        take_launches(False)
+        uploads0 = dev.store.snapshot_uploads
+        for i in range(8):
+            first_seen = i == 3
+            step(
+                f"append_{i + 1}",
+                lambda: append(unit, 4 if i < 3 else NEW_DEVICE + 1, first_seen),
+                mixed if first_seen else queries,
+                check_b1=first_seen,
+            )
+        if store.columns["device"].bits != 3 or store.columns["price"].bits != 15:
+            raise AssertionError(f"BSI widths after append 4: {store.columns}")
+
+        def coalesced():
+            sched.coalesce_appends = True
+            for _ in range(4):
+                append(unit // 4)
+            if sched.appends_queued != 4:
+                raise AssertionError("a coalesced append was programmed before the flush")
+
+        step("coalesced_appends_4", coalesced)
+        sched.coalesce_appends = False
+        if sched.appends_queued:
+            raise AssertionError("queued appends left after the flush")
+        doomed = rng.choice(np.flatnonzero(live[:n]), unit, replace=False)
+        step("delete", lambda: delete(doomed))
+        updated = rng.choice(np.flatnonzero(live[:n]), unit // 16, replace=False)
+
+        def update():
+            nonlocal n
+            ids, b = updated, len(updated)
+            batch = make_batch(rng, b, np.append(points, NEW_PRICE), NEW_DEVICE + 1)
+            timed(sched.update, ids, batch)
+            live[ids] = False
+            oracle.add({c: v[ids] for c, v in res.items()}, -1)
+            for c, v in batch.items():
+                res[c][n : n + b] = v
+            live[n : n + b] = True
+            n += b
+            oracle.add(batch)
+
+        step("update", update)
+        wave = int(np.ceil(DELETE_FRAC * store.num_rows)) - store.deleted_rows
+        doomed = rng.choice(np.flatnonzero(live[:n]), wave, replace=False)
+        step("delete_wave", lambda: delete(doomed))
+        del doomed
+        if store.tombstone_density < DELETE_FRAC:
+            raise AssertionError(f"tombstone density {store.tombstone_density}")
+        if dev.store.snapshot_uploads != uploads0:
+            raise AssertionError("an append, delete or update uploaded the whole snapshot")
+
+        def compact():
+            nonlocal n
+            st = timed(sched.compact)
+            t = time.perf_counter()
+            dev.store.snapshot(dev.device)
+            sync()
+            upload_s = time.perf_counter() - t
+            keep = live[:n]
+            k = int(keep.sum())
+            for c in res:
+                res[c][:k] = res[c][:n][keep]
+            live[:] = False
+            live[:k] = True
+            n = k
+            keys = ("rows_dropped", "blocks_erased", "words_reprogrammed", "to_table_s", "rebuild_s", "program_s")
+            return {**{k_: st[k_] for k_ in keys}, "upload_s": upload_s}
+
+        line = step("compact", compact, mixed, check_b1=True)
+        if dev.store.snapshot_uploads != uploads0 + 1 or store.deleted_rows:
+            raise AssertionError(f"compact(): {dev.store.snapshot_uploads} uploads, {store.deleted_rows} tombstones")
+        last = step("append_after_compact", lambda: append(unit), mixed)
+        if dev.store.snapshot_uploads != uploads0 + 1:
+            raise AssertionError("an append after compact() uploaded the whole snapshot")
+    finally:
+        PackedStore._write_through, agg_mod.fetch_pages, dev_mod.mws_gather = orig
+    if on_card:
+        for k, v in launches.items():
+            if v < 1:
+                raise AssertionError(f"kernel {k} never launched on the mutation path")
+
+    # the reference's design: every write re-uploads the whole store
+    ps = dev.store
+    t = time.perf_counter()
+    whole = to_words(ps._buf[: ps.num_slots], device)
+    sync()
+    first = steps[0]
+    upload = {
+        "whole_upload_s": time.perf_counter() - t,
+        "whole_upload_bytes": whole.numel() * 4,
+        "append_rows": unit,
+        # the snapshot writes of the first append and of the last one
+        "delta_write_s": [first["snapshot_write_s"], last["snapshot_write_s"]],
+        "delta_write_bytes": [first["snapshot_bytes_written"], last["snapshot_bytes_written"]],
+        "compact_upload_s": line["upload_s"],
+    }
+    del whole
+    log(json.dumps({"mutation_upload_vs_delta": upload, **({"card": card} if card else {})}))
+    out = {"rows": rows, "steps": steps, "upload_vs_delta": upload, "launches": launches}
+    del sched, dev, store, rec, res, live, oracle
     return out
 
 
@@ -1370,7 +1691,10 @@ def main() -> int:
     card_line = _card()
     log(f"card: {card_line}")
     kind = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    log(
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
+        f"python {sys.version.split()[0]}"
+    )
 
     t0 = time.perf_counter()
     _build.library()
@@ -1401,6 +1725,12 @@ def main() -> int:
     summary = {k: v for k, v in res.items() if isinstance(v, dict)}
     log(json.dumps({"main_path": summary, "rows": ROWS, "words": res["words"], "card": card_line}))
     del res
+    gc.collect()
+
+    t0 = time.perf_counter()
+    mut = mutation_path("cuda", ROWS, card=card_line)
+    log(f"mutation path: {time.perf_counter() - t0:.1f} s, launches {mut['launches']}")
+    del mut
     # the 365-day stack (36.5 GB) needs the card to itself: nothing of the
     # FlashQL phases stays resident, and training starts after it is freed
     gc.collect()

@@ -133,8 +133,13 @@ class FlashArray:
     # names of non-ESP pages, maintained incrementally so hot paths never
     # scan program_configs
     _non_esp: set = field(default_factory=set, repr=False)
-    # host-initiated ESP page programs (fc_write(esp=True))
+    # host-initiated ESP page programs (fc_write(esp=True) + fc_append):
+    # appending B rows programs O(B) pages, not O(num_rows)
     esp_programs: int = 0
+    # whole-block erases issued by erase_rebuild (NAND programs only 1->0,
+    # so reclaiming tombstoned rows erases every block the stripe occupies
+    # and reprograms the live data)
+    block_erases: int = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -189,10 +194,57 @@ class FlashArray:
             if esp:
                 self.esp_programs += 1
 
+    def fc_append(
+        self, name: str, words, *, start: int, charge: bool = True
+    ) -> None:
+        """Delta-page ESP program: extend an already-placed page's tail.
+
+        Only ``words`` (logical host ``uint32``, at word offset ``start``)
+        are programmed — one page program however many earlier words the
+        page holds.  The page keeps its placement, inversion, and program
+        config; the store treats the write as a tail extension (compiled
+        plans stay valid, see ``PackedStore.append_words``).
+        ``charge=False`` as in :meth:`fc_write`.
+        """
+        p = self.layout[name]
+        w = np.asarray(words, dtype=np.uint32)
+        self.store.append_words(name, ~w if p.inverted else w, start)
+        if charge:
+            self.pec[p.block] = self.pec.get(p.block, 0) + 1
+            self.esp_programs += 1
+
     def fc_read(self, e: Expr) -> torch.Tensor:
         """Plan + execute a bulk bitwise expression; returns logical words."""
         plan = Planner(self.layout).compile(e)
         return self.execute(plan)
+
+    def erase_rebuild(self) -> int:
+        """Erase every programmed block and reset for a full reprogram.
+
+        The device half of compaction: every block the layout occupies
+        takes one P/E cycle (``pec``) and counts toward ``block_erases``;
+        the page store and layout come back empty, with the store's
+        content and region epochs seeded ABOVE their old values, so no
+        plan-cache or snapshot-cache key minted against the old data can
+        match the rebuilt one.  The new store inherits the old one's
+        ``snapshot_uploads``: its first snapshot is the rebuild's one
+        whole upload.  Returns the blocks erased.
+        """
+        blocks = {p.block for p in self.layout.placements.values()}
+        for b in blocks:
+            self.pec[b] = self.pec.get(b, 0) + 1
+        self.block_erases += len(blocks)
+        old = self.store
+        self.store = PackedStore(planes=old.planes)
+        self.store.epoch = old.epoch + 1
+        self.store.region_epochs = {r: e + 1 for r, e in old.region_epochs.items()}
+        self.store.snapshot_uploads = old.snapshot_uploads
+        self.layout = Layout(
+            wls_per_block=self.layout.wls_per_block, levels=self.layout.levels
+        )
+        self.program_configs.clear()
+        self._non_esp.clear()
+        return len(blocks)
 
     # -- sensing ------------------------------------------------------------
     def _gather_cube(

@@ -14,10 +14,13 @@ ANDs to zero and is therefore OR-neutral across blocks — plan-aware
 batching uses it to pad a plan with fewer target blocks into a wider
 signature's shape.
 
-Writes go to a host-side ``numpy`` buffer (amortized doubling); the device
-snapshot (an ``int32`` tensor on the caller's ``torch.device``) is
-materialized lazily and invalidated on write, so steady-state query
-serving gathers from one cached tensor.
+Writes go to a host-side ``numpy`` buffer (amortized doubling).  The
+device snapshot (an ``int32`` tensor on the caller's ``torch.device``) is
+uploaded whole once, lazily, and from then on kept in place: every write
+copies just the words it changed into the cached tensor (one
+host-to-device copy), and a new slot grows the device tensor on the
+device, by capacity doubling like the host buffer.  A delta append of B
+rows therefore moves O(B) words to the device, never the store.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ class PackedStore:
     _buf: np.ndarray | None = None  # (capacity, planes * wpp) uint32
     _n: int = 0
     _words: int | None = None  # logical words per page (pre-padding)
+    # device copy of the host buffer, same capacity; the snapshot is its
+    # first ``_n`` rows
+    _dev_buf: torch.Tensor | None = None
     _snapshot: torch.Tensor | None = None
     _snapshot_device: torch.device | None = None
     # Content version: bumped whenever page *content* changes, except
@@ -73,9 +79,10 @@ class PackedStore:
     # a full (re)program of a page in the region.  Plan caches key on the
     # regions their leaves touch.
     region_epochs: dict[str, int] = field(default_factory=dict)
-    # how many times the packed buffer was uploaded to the device: steady
-    # state serving must hold this flat (spilled values stay in latch
-    # scratch, never the store)
+    # how many times the whole packed buffer was uploaded to the device:
+    # steady-state serving holds this flat (spilled values stay in latch
+    # scratch, never the store), and so do writes, which update the cached
+    # snapshot in place
     snapshot_uploads: int = 0
 
     # -- geometry ----------------------------------------------------------
@@ -138,11 +145,51 @@ class PackedStore:
             self._slots[name] = slot
         self._buf[slot, : self._words] = w
         self._buf[slot, self._words :] = 0
-        self._snapshot = None
+        self._write_through(slot, 0, self._buf.shape[1])
         region = page_region(name)
         if region is not None:
             self.epoch += 1
             self.region_epochs[region] = self.region_epochs.get(region, 0) + 1
+
+    def append_words(self, name: str, words, start: int) -> None:
+        """Delta-page programming: overwrite only ``words`` at ``start``.
+
+        The incremental-ingest write path.  The caller guarantees the
+        written range covers only the page's tail beyond previously-valid
+        rows (an *append*), so compiled plans — which gather by slot —
+        remain valid: the page's region epoch is left alone and only the
+        content ``epoch`` is bumped (snapshot-level caches must refresh).
+        """
+        w = np.asarray(words, dtype=np.uint32).reshape(-1)
+        slot = self._slots[name]
+        assert self._words is not None
+        if start < 0 or start + w.shape[0] > self._words:
+            raise ValueError(
+                f"delta [{start}, {start + w.shape[0]}) out of range for "
+                f"page {name!r} with {self._words} words"
+            )
+        self._buf[slot, start : start + w.shape[0]] = w
+        self._write_through(slot, start, start + w.shape[0])
+        if page_region(name) is not None:
+            self.epoch += 1
+
+    def _write_through(self, slot: int, start: int, stop: int) -> None:
+        """Copy host words ``[start, stop)`` of ``slot`` into the cached
+        device snapshot, if there is one: one synchronous host-to-device
+        copy of just those words.  A slot past the device tensor's
+        capacity first grows it on the device to the host capacity."""
+        dev = self._dev_buf
+        if dev is None:
+            return
+        if slot >= dev.shape[0]:
+            grown = torch.empty(
+                (self._buf.shape[0], dev.shape[1]), dtype=dev.dtype, device=dev.device
+            )
+            grown[:slot].copy_(dev[:slot])
+            self._dev_buf = dev = grown
+            self._snapshot = None
+        host = torch.from_numpy(self._buf[slot, start:stop].view(np.int32))
+        dev[slot, start:stop].copy_(host)
 
     # -- reads -------------------------------------------------------------
     def slot(self, name: str) -> int:
@@ -155,14 +202,21 @@ class PackedStore:
     def snapshot(self, device=None) -> torch.Tensor:
         """Device-side ``(slots, planes * words_per_plane)`` int32 tensor.
 
-        Cached until the next write (or a request for another device); a
+        Uploaded whole on the first call (and on a request for another
+        device), then kept up to date in place by every write; a
         multi-plane gather + reduce over it covers every plane in one
         kernel launch because planes are word-axis shards of each slot row.
+        The tensor is always a copy, never a view of the host buffer (on
+        the CPU too), so a host reallocation cannot leave it stale.
         """
         device = torch.device("cpu" if device is None else device)
-        if self._snapshot is None or self._snapshot_device != device:
+        if self._dev_buf is None or self._snapshot_device != device:
             assert self._buf is not None, "empty store has no snapshot"
-            self._snapshot = to_words(self._buf[: self._n], device)
-            self._snapshot_device = device
+            dev = torch.empty(self._buf.shape, dtype=torch.int32, device=device)
+            dev[: self._n].copy_(to_words(self._buf[: self._n]))
+            self._dev_buf, self._snapshot_device = dev, device
+            self._snapshot = None
             self.snapshot_uploads += 1
+        if self._snapshot is None or self._snapshot.shape[0] != self._n:
+            self._snapshot = self._dev_buf[: self._n]
         return self._snapshot

@@ -2,8 +2,8 @@
 
 The port's mirror of ``repro.query``: serving through
 :class:`BatchScheduler` on one device, with every aggregate (COUNT, MASK,
-SUM, AVG, MIN, MAX, TOP-K, GROUP BY).  Sharded serving and mutations are
-later slices (see ROADMAP.md).
+SUM, AVG, MIN, MAX, TOP-K, GROUP BY), over a live index (append, delete,
+update, compact).  Sharded serving is a later slice (see ROADMAP.md).
 
 * :mod:`repro_torch.query.ast` — the predicate AST and aggregate specs;
 * :mod:`repro_torch.query.aggregate` — the aggregation pipeline;
@@ -43,7 +43,12 @@ from repro_torch.query.ast import (
     Sum,
     TopK,
 )
-from repro_torch.query.bitmap import VALID_PAGE, BitmapStore
+from repro_torch.query.bitmap import (
+    VALID_PAGE,
+    AppendDelta,
+    BitmapStore,
+    PageDelta,
+)
 from repro_torch.query.compile import (
     CompiledQuery,
     FlushProgram,
@@ -83,7 +88,9 @@ __all__ = [
     "TopK",
     "get_aggregator",
     "validate_query",
+    "AppendDelta",
     "BitmapStore",
+    "PageDelta",
     "VALID_PAGE",
     "CompiledQuery",
     "FlushProgram",

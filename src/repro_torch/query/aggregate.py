@@ -632,7 +632,7 @@ def group_extras(
     store_keys: list,
     extras_cache: dict,
     cache_cap: int,
-    device=None,
+    device,
 ):
     """Stacked ``(B_g, P, W)`` extra sensed planes of one reduce group on
     ``device``.

@@ -18,13 +18,22 @@ MWS — while BSI slices are stored plain + co-located.  Everything is
 ESP-programmed, so query serving is error-free per the paper's
 reliability result.
 
+The index is *mutable*: :meth:`BitmapStore.append` extends a live index
+with new rows, reprogramming only the delta pages (tail words of pages
+the new rows set bits in, plus fresh pages for first-seen values and
+grown BSI widths — placed into the column's reserved layout region);
+:meth:`BitmapStore.delete` clears rows' bits in the tombstone page, and
+:meth:`BitmapStore.rebuild` re-ingests the live rows (the host half of
+compaction).  Page word capacity is fixed at ingest (``reserve_rows``).
+
 The logical pages stay host-resident (numpy ``uint32``); the device holds
-them only inside the flash array's packed store.  Appends, deletes and
-compaction (the mutable index) are not part of this port yet.
+them only inside the flash array's packed store, whose snapshot takes
+each delta in place.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Iterable
 
@@ -78,7 +87,7 @@ def eq_pages(store: "BitmapStore", column: str) -> tuple[str, ...]:
 
 
 def fetch_pages(
-    store: "BitmapStore", names: tuple[str, ...], device=None
+    store: "BitmapStore", names: tuple[str, ...], device
 ) -> torch.Tensor:
     """Stack logical pages into one ``(len(names), words)`` int32 tensor
     on ``device``.
@@ -103,28 +112,92 @@ class ColumnIndex:
         return self.values[-1] if self.values else 0
 
 
+def validate_batch(columns, rows: dict[str, np.ndarray]) -> int:
+    """Schema-level append-batch validation; returns the batch length.
+
+    The batch's column set must EXACTLY match ``columns`` (missing and
+    unknown both reject), all columns must be equal length, and values
+    must be non-negative.
+    """
+    missing = sorted(set(columns) - set(rows))
+    unknown = sorted(set(rows) - set(columns))
+    if missing or unknown:
+        raise ValueError(
+            "append batch columns do not match the ingest schema: "
+            f"missing {missing}, unknown {unknown}"
+        )
+    lengths = {len(v) for v in rows.values()}
+    if len(lengths) != 1:
+        raise ValueError(f"ragged append batch: row counts {sorted(lengths)}")
+    (b,) = lengths
+    for col, vals in rows.items():
+        arr = np.asarray(vals)
+        if b and arr.min() < 0:
+            raise ValueError(f"column {col!r} has negative values")
+    return b
+
+
+@dataclass(frozen=True)
+class PageDelta:
+    """One page's contribution to an append (delta-page programming).
+
+    ``new`` pages (equality bitmap of a first-seen value, or a BSI slice
+    for a grown bit width) carry their full words and a placement region;
+    existing pages carry only the tail words from ``start`` on — the words
+    an append actually changes — so programming cost scales with the
+    appended rows, not the rows already resident.
+    """
+
+    name: str
+    start: int  # first programmed word (0 for new pages)
+    words: np.ndarray  # programmed words (the full page when new)
+    new: bool = False
+    region: str | None = None  # layout region for new pages
+    inverted: bool = False  # placement inversion for new pages
+
+
+@dataclass(frozen=True)
+class AppendDelta:
+    """Everything :meth:`BitmapStore.append` changed, ready to program."""
+
+    rows: int  # appended row count
+    start_row: int  # first appended global row index
+    pages: tuple[PageDelta, ...]
+
+    @property
+    def num_programs(self) -> int:
+        """ESP page programs this delta costs (one per touched page)."""
+        return len(self.pages)
+
+
 @dataclass
 class BitmapStore:
     """Ingests a columnar table; owns the logical bitmap pages."""
 
     num_rows: int = 0
     columns: dict[str, ColumnIndex] = field(default_factory=dict)
-    # packed logical pages, HOST-resident (numpy uint32); consumers upload
-    # them lazily (fc_write into the packed store, fetch_pages)
+    # packed logical pages, HOST-resident (numpy uint32): appends mutate
+    # only the delta words in place; consumers upload them lazily
+    # (fc_write into the packed store, fetch_pages)
     logical: dict[str, np.ndarray] = field(default_factory=dict)
-    # content version: bumped per ingest — snapshot-level caches (valid-row
-    # masks, stacked aggregate extras) key on it
+    # content version: bumped per ingest, append and delete —
+    # snapshot-level caches (valid-row masks, stacked aggregate extras)
+    # key on it
     epoch: int = 0
     # per-column *metadata* epochs: bumped only when a column's lowering-
     # relevant index metadata (distinct values / BSI bit width) changes;
-    # plan caches key on the epochs of the columns a plan's leaves touch
+    # plan caches key on the epochs of the columns a plan's leaves touch,
+    # so a value-stable append leaves every plan warm
     column_epochs: dict[str, int] = field(default_factory=dict)
-    # row capacity the pages are sized for (``reserve_rows`` headroom)
+    # row capacity the pages are sized for: in-capacity appends only ever
+    # program erased tail words; appends past it are rejected
     capacity_rows: int = 0
     # fleet-wide minimum word count (zero padding, masked out of every
     # aggregation — see valid_words_mask)
     min_words: int = 0
-    # rows tombstoned since ingest: always 0 until deletes are ported
+    # rows tombstoned since ingest/rebuild: their VALID_PAGE bits are
+    # cleared and every plan masks them out; ``num_rows`` keeps counting
+    # them (row ids are stable between compactions)
     deleted_rows: int = 0
 
     @property
@@ -159,8 +232,9 @@ class BitmapStore:
         global maximum, so predicate lowering, placement, and hence plan
         signatures are identical on every shard.
 
-        ``reserve_rows`` sizes every page for that many rows beyond the
-        ingested table (erased, zero tail words).
+        ``reserve_rows`` sizes every page for that many future
+        :meth:`append` rows beyond the ingested table — the page word
+        count is fixed here, so appends beyond the reserve are rejected.
         """
         lengths = {len(v) for v in table.values()}
         if len(lengths) != 1:
@@ -222,6 +296,200 @@ class BitmapStore:
         span[: bits.shape[0]] = bits
         return np.packbits(span, bitorder="little").view(np.uint32).copy()
 
+    # -- incremental ingest --------------------------------------------------
+    def check_append(self, rows: dict[str, np.ndarray]) -> int:
+        """Validate an append batch WITHOUT mutating anything; returns the
+        batch length.  Raises on an un-ingested store, a column set that
+        does not match the ingest schema, ragged columns, negative values,
+        and word-capacity overflow."""
+        if not self.columns:
+            raise ValueError("append() needs an ingested store")
+        b = validate_batch(self.columns, rows)
+        if num_words(self.num_rows + b) > self.words:
+            raise ValueError(
+                f"appending {b} rows to {self.num_rows} overflows the "
+                f"store's {self.words}-word page capacity "
+                f"({self.capacity_rows} rows); ingest with a larger "
+                "reserve_rows to leave append headroom"
+            )
+        return b
+
+    def _tail_words(
+        self, name: str, new_bits: np.ndarray, n0: int, b: int
+    ) -> tuple[int, np.ndarray]:
+        """Delta words of a page whose rows ``n0..n0+b-1`` become
+        ``new_bits``: only the words an append touches, with the partial
+        first word preserving the resident rows' bits."""
+        sw = n0 // WORD_BITS
+        ew = num_words(n0 + b)
+        span = np.zeros(((ew - sw) * WORD_BITS,), np.uint8)
+        off = n0 - sw * WORD_BITS
+        span[off : off + b] = new_bits
+        words = np.packbits(span, bitorder="little").view(np.uint32).copy()
+        if off and name in self.logical:
+            old = int(self.logical[name][sw])
+            words[0] |= np.uint32(old & ((1 << off) - 1))
+        return sw, words
+
+    def _apply_words(self, name: str, start: int, words: np.ndarray) -> None:
+        """Mutate only the delta words of a host page (O(delta))."""
+        page = self.logical.get(name)
+        if page is None:
+            page = np.zeros((self.words,), np.uint32)
+            self.logical[name] = page
+        page[start : start + words.shape[0]] = words
+
+    def append(
+        self,
+        rows: dict[str, np.ndarray],
+        schema_update: dict[str, tuple[int, ...]] | None = None,
+    ) -> AppendDelta:
+        """Append ``rows`` to the live index; returns the page deltas.
+
+        Only pages an append actually changes appear in the delta: the
+        all-rows and tombstone pages and every page with a set bit among
+        the new rows get their *tail words* reprogrammed in place;
+        first-seen values get fresh equality pages in the column's reserved
+        (inverted, co-located) layout region, and values wider than the
+        column's BSI index grow fresh slice pages in the BSI region — zero
+        for all resident rows, so no old page is touched.  Pages with an
+        all-zero delta cost nothing.  ``schema_update`` forces the
+        post-append distinct-value set per column (a superset of old ∪
+        batch).  Column metadata epochs bump only for columns whose value
+        set / bit width changed.
+        """
+        b = self.check_append(rows)
+        n0 = self.num_rows
+        deltas: list[PageDelta] = []
+
+        if b:
+            for const in (TRUE_PAGE, VALID_PAGE):
+                # appended rows are live: the tombstone page's tail extends
+                # exactly like the all-rows page's (one delta program each)
+                sw, words = self._tail_words(const, np.ones((b,), np.uint8), n0, b)
+                self._apply_words(const, sw, words)
+                deltas.append(PageDelta(const, sw, words))
+
+        for col, ci in self.columns.items():
+            vals = np.asarray(rows[col])
+            forced = schema_update.get(col, ()) if schema_update is not None else ()
+            new_values = sorted(
+                ({int(v) for v in vals} | {int(v) for v in forced}) - set(ci.values)
+            )
+            all_values = tuple(sorted(set(ci.values) | set(new_values)))
+            bits = max(
+                ci.bits, max((int(v).bit_length() for v in all_values), default=1)
+            )
+            # equality bitmaps: tails of existing pages with hits, fresh
+            # pages (zero for resident rows) for first-seen values
+            if b:
+                for v in sorted({int(v) for v in vals} & set(ci.values)):
+                    hit = (vals == v).astype(np.uint8)
+                    sw, words = self._tail_words(eq_page(col, v), hit, n0, b)
+                    self._apply_words(eq_page(col, v), sw, words)
+                    deltas.append(PageDelta(eq_page(col, v), sw, words))
+            for v in new_values:
+                eq_bits = np.zeros((n0 + b,), np.uint8)
+                if b:
+                    eq_bits[n0:] = (vals == v).astype(np.uint8)
+                full = self._pack(eq_bits)
+                self.logical[eq_page(col, v)] = full
+                deltas.append(
+                    PageDelta(
+                        eq_page(col, v), 0, full, new=True,
+                        region=eq_region(col), inverted=True,
+                    )
+                )
+            # BSI slices: tails of existing slices with set bits, fresh
+            # slices for a grown bit width (resident rows are all zero
+            # there: every old value < 2^old_bits)
+            if b:
+                for bit in range(ci.bits):
+                    sl = ((vals >> bit) & 1).astype(np.uint8)
+                    if not sl.any():
+                        continue
+                    sw, words = self._tail_words(bsi_page(col, bit), sl, n0, b)
+                    self._apply_words(bsi_page(col, bit), sw, words)
+                    deltas.append(PageDelta(bsi_page(col, bit), sw, words))
+            for new_bit in range(ci.bits, bits):
+                slice_bits = np.zeros((n0 + b,), np.uint8)
+                if b:
+                    slice_bits[n0:] = ((vals >> new_bit) & 1).astype(np.uint8)
+                full = self._pack(slice_bits)
+                self.logical[bsi_page(col, new_bit)] = full
+                deltas.append(
+                    PageDelta(
+                        bsi_page(col, new_bit), 0, full, new=True,
+                        region=bsi_region(col), inverted=False,
+                    )
+                )
+            if new_values or bits != ci.bits:
+                self.columns[col] = ColumnIndex(col, all_values, bits)
+                self.column_epochs[col] = self.column_epochs.get(col, 0) + 1
+
+        self.num_rows = n0 + b
+        if b or deltas:
+            self.epoch += 1
+        return AppendDelta(rows=b, start_row=n0, pages=tuple(deltas))
+
+    def program_delta(
+        self, array, delta: AppendDelta, telemetry=None
+    ) -> tuple[int, int]:
+        """ESP-program an append's page deltas into ``array``.
+
+        New pages are placed into their column's reserved layout region
+        and programmed whole; existing pages get one delta-page program
+        covering only their tail words (``fc_append``).  Returns
+        ``(programs, words)`` — the PHYSICAL page programs issued and the
+        physical words they covered: under multi-level packing
+        (``array.layout.levels > 1``) the logical pages co-resident in one
+        physical page program together in ONE ISPP pass (the group's lead
+        delta charges the wear/ESP counters) and the group's word cost is
+        the union span of its members' programmed words.  At ``levels ==
+        1`` the accounting is per page.  ``telemetry`` (attached by the
+        owning scheduler) records the pass as a trace span and histograms
+        when enabled.
+        """
+        timed = telemetry is not None and telemetry.enabled
+        t0 = time.perf_counter() if timed else 0.0
+        layout = array.layout
+        for pd in delta.pages:
+            if pd.new and pd.name not in layout:
+                layout.place_colocated(
+                    [pd.name], inverted=pd.inverted, region=pd.region
+                )
+        levels = layout.levels
+        groups: dict[tuple[int, int], list[PageDelta]] = {}
+        for pd in delta.pages:
+            p = layout[pd.name]
+            groups.setdefault((p.block, p.wordline // levels), []).append(pd)
+        programs = words = 0
+        for group in groups.values():
+            lo = min(pd.start for pd in group)
+            hi = max(pd.start + int(pd.words.shape[0]) for pd in group)
+            charge = True
+            for pd in group:
+                if pd.new:
+                    array.fc_write(pd.name, pd.words, esp=True, charge=charge)
+                else:
+                    array.fc_append(pd.name, pd.words, start=pd.start, charge=charge)
+                charge = False
+            programs += 1
+            words += hi - lo
+        if timed:
+            t1 = time.perf_counter()
+            telemetry.span(
+                "program_delta",
+                "ingest",
+                t0,
+                t1,
+                tid="ingest",
+                args={"pages": delta.num_programs, "rows": delta.rows},
+            )
+            telemetry.observe("append_pages_programmed", delta.num_programs)
+            telemetry.observe("append_program_s", t1 - t0)
+        return programs, words
+
     # -- deletes / tombstones ------------------------------------------------
     @property
     def live_rows(self) -> int:
@@ -233,6 +501,120 @@ class BitmapStore:
         """Fraction of resident rows that are tombstoned (compaction
         trigger: garbage the stripe carries through every sensing)."""
         return self.deleted_rows / self.num_rows if self.num_rows else 0.0
+
+    def live_bits(self) -> np.ndarray:
+        """Boolean live-row mask over ``num_rows`` (the VALID_PAGE bits)."""
+        page = self.logical[VALID_PAGE]
+        bits = np.unpackbits(
+            page.view(np.uint8), bitorder="little", count=self.num_rows
+        )
+        return bits.astype(bool)
+
+    def check_delete(self, row_ids) -> np.ndarray:
+        """Validate a delete batch WITHOUT mutating; returns the unique ids.
+
+        Raises on non-integer ids, ids outside ``[0, num_rows)``,
+        duplicate ids within the batch, and ids already tombstoned.
+        """
+        if VALID_PAGE not in self.logical:
+            raise ValueError("delete() needs an ingested store")
+        raw = np.asarray(row_ids)
+        if raw.size and raw.dtype.kind not in "iu":
+            raise ValueError(
+                f"delete ids must be integers, got dtype {raw.dtype} "
+                "(a float id would silently truncate to a neighbour row)"
+            )
+        # sort + an adjacent-equal test, not np.unique: numpy 2.3's hashed
+        # unique takes ~100 s on 50M distinct ids where the sort takes 0.7
+        ids = np.sort(raw.astype(np.int64, copy=False).ravel())
+        if ids.size and (ids[1:] == ids[:-1]).any():
+            raise ValueError("delete batch has duplicate row ids")
+        if ids.size and (ids[0] < 0 or ids[-1] >= self.num_rows):
+            raise ValueError(
+                f"delete ids outside [0, {self.num_rows}): "
+                f"{ids[(ids < 0) | (ids >= self.num_rows)][:5]}"
+            )
+        if ids.size:
+            page = self.logical[VALID_PAGE]
+            dead = (page[ids // WORD_BITS] >> (ids % WORD_BITS)) & 1 == 0
+            if dead.any():
+                raise ValueError(f"rows already deleted: {ids[dead][:5]}")
+        return ids
+
+    def delete(self, row_ids) -> AppendDelta:
+        """Tombstone ``row_ids``; returns the (one-page) delta to program.
+
+        Clears the rows' VALID_PAGE bits — a physical 1->0 transition on
+        the non-inverted tombstone page, so however many rows die the cost
+        is ONE delta-page program spanning the touched words.  No other
+        page changes and no column or region epoch moves; the content
+        epoch bumps so snapshot-level caches refresh.
+        """
+        ids = self.check_delete(row_ids)
+        if not ids.size:
+            return AppendDelta(rows=0, start_row=self.num_rows, pages=())
+        page = self.logical[VALID_PAGE]
+        # ids are sorted and unique, so each touched word's bits form one
+        # run: OR them with reduceat (ufunc.at is per-element slow on
+        # older numpy, which a delete of tens of millions of rows feels)
+        word = ids // WORD_BITS
+        bits = np.uint32(1) << (ids % WORD_BITS).astype(np.uint32)
+        run = np.flatnonzero(np.r_[True, word[1:] != word[:-1]])
+        page[word[run]] &= ~np.bitwise_or.reduceat(bits, run)
+        sw = int(ids[0] // WORD_BITS)
+        ew = int(ids[-1] // WORD_BITS) + 1
+        self.deleted_rows += int(ids.size)
+        self.epoch += 1
+        return AppendDelta(
+            rows=0,
+            start_row=self.num_rows,
+            pages=(PageDelta(VALID_PAGE, sw, page[sw:ew].copy()),),
+        )
+
+    # -- compaction ------------------------------------------------------------
+    def to_table(self) -> dict[str, np.ndarray]:
+        """Reconstruct the resident rows' column values from the BSI pages
+        (``value[row] = sum_b slice_b[row] << b``) — what compaction
+        rebuilds a stripe from."""
+        n = self.num_rows
+        out: dict[str, np.ndarray] = {}
+        for col, ci in self.columns.items():
+            vals = np.zeros((n,), dtype=np.int64)
+            for b in range(ci.bits):
+                bits = np.unpackbits(
+                    self.logical[bsi_page(col, b)].view(np.uint8),
+                    bitorder="little",
+                    count=n,
+                )
+                vals |= bits.astype(np.int64) << b
+            out[col] = vals
+        return out
+
+    def rebuild(
+        self,
+        table: dict[str, np.ndarray],
+        *,
+        reserve_rows: int = 0,
+        schema: dict[str, tuple[int, ...]] | None = None,
+        min_words: int | None = None,
+    ) -> None:
+        """Reset and re-ingest in place — the host half of compaction.
+
+        Keeps the object identity (schedulers, compilers, and aggregators
+        hold references) and the epoch counters, which keep rising, so no
+        cache key minted against the old index matches the rebuilt one.
+        ``schema`` (normally the pre-compaction value sets) keeps pages for
+        values the surviving rows no longer contain; ``reserve_rows``
+        re-opens append headroom; ``min_words`` re-applies padding.
+        """
+        self.logical.clear()
+        self.columns.clear()
+        self.num_rows = 0
+        self.capacity_rows = 0
+        self.deleted_rows = 0
+        if min_words is not None:
+            self.min_words = min_words
+        self.ingest(table, schema=schema, reserve_rows=reserve_rows)
 
     # -- program ------------------------------------------------------------
     def place_into(self, layout, warmup: Iterable[Query] = ()) -> None:

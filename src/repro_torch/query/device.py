@@ -374,6 +374,18 @@ class FlashDevice(FlashArray):
                 )
             self.store = PackedStore(planes=self.num_planes)
 
+    def reset_after_rebuild(self) -> None:
+        """Drop prepared-batch state after :meth:`erase_rebuild`.
+
+        Batch-cache keys embed plan-cache keys whose epochs can never be
+        minted again, so the entries are unreachable — clearing just frees
+        them (and their device index tensors) eagerly.  Runners stay: they
+        are keyed on structural signatures and serve the rebuilt store.
+        """
+        self._batch_cache.clear()
+        self.last_signature_groups = 0
+        self.last_eager_plans = 0
+
     # -- plan lowering -----------------------------------------------------
     def build_exec(
         self,

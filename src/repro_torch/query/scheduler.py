@@ -19,8 +19,11 @@ it.  The scheduler also records every executed MWS command's shape, so
 ``projection()`` can replay the served traffic through the paper's
 full-scale SSD model (Table-1 geometry), next to the OSP baseline.
 
-Mutations (append, delete, update, compact) are not ported yet (ROADMAP
-A4): they raise ``NotImplementedError``.
+The index it serves is live: ``append`` programs delta pages (or queues
+them under ``coalesce_appends`` until the next flush), ``delete`` and
+``update`` clear rows in the tombstone page, and ``compact`` erases the
+stripe's blocks and reprograms the live rows.  Mutations are refused
+while queries are pending, so no ticket spans one.
 """
 
 from __future__ import annotations
@@ -57,10 +60,27 @@ from repro_torch.query.telemetry import (
 # aggregate) = one single-wordline sensing in the SSD projection
 AGG_READ_SHAPE = MWSCommandShape(n_blocks=1, max_wls_per_block=1)
 
-_MUTATIONS = (
-    "mutations are not ported to repro_torch yet (ROADMAP A4: appends, "
-    "deletes, updates and compaction)"
-)
+
+def merge_appends(batches: list[dict]) -> dict:
+    """Concatenate queued append batches into one combined batch."""
+    return {col: np.concatenate([b[col] for b in batches]) for col in batches[0]}
+
+
+def queue_append(store, buf: list[dict], rows: dict) -> None:
+    """Validate + queue one append batch for coalesced programming.
+
+    THIS batch's column set is validated first (the merge below is built
+    from the first queued batch's columns, so an unknown or missing column
+    would slip through it), then the cumulative concatenation must fit the
+    schema and capacity BEFORE the batch is accepted, so ``apply_appends``
+    can never fail halfway.  Empty batches validate but queue nothing (an
+    empty ndarray defaults to float64 and would poison the merged dtype).
+    """
+    arrays = {c: np.asarray(v) for c, v in rows.items()}
+    store.check_append(arrays)
+    store.check_append(merge_appends(buf + [arrays]))
+    if len(next(iter(arrays.values()))):
+        buf.append(arrays)
 
 
 def plan_traffic(plan) -> tuple[tuple, int]:
@@ -279,6 +299,9 @@ class BatchScheduler:
     # serving path); False keeps the per-reduce-group legacy path — the
     # oracle the differential harness compares against
     fuse_flush: bool = True
+    # queue small append() batches and program them as one coalesced delta
+    # per touched page on the next flush (or apply_appends())
+    coalesce_appends: bool = False
     # -- the cost-based multi-query optimizer (repro_torch.query.optimize) --
     # canonicalize predicates, pick chain orderings by the flashsim cost
     # model, dedup + CSE-share plans within each fused flush, and
@@ -289,6 +312,14 @@ class BatchScheduler:
     # ESP-programmed as a cached page (see QueryCompiler.materialize);
     # None disables materialization while keeping the other stages
     materialize_after: int | None = 32
+    # -- background-compaction policy (see compact()) -----------------------
+    # auto-compact when the stripe's tombstone density crosses this (None
+    # disables the policy); checked after delete()/update() only, never
+    # mid-flush, so no ticket spans a rebuild
+    compact_density: float | None = None
+    # on append overflow, rebuild into wider pages (capacity growth folded
+    # into the compaction path) instead of rejecting the batch
+    grow_on_overflow: bool = False
     # the unified metrics registry + trace recorder; pass
     # Telemetry(enabled=False) to strip every per-event recorder off the
     # hot path (counters keep counting — stats()/projection read them)
@@ -313,6 +344,8 @@ class BatchScheduler:
     # flush-level CSE rewrites per (batch composition, store epochs) —
     # see repro_torch.query.optimize.cse_flush
     _cse_cache: dict = field(default_factory=dict, repr=False)
+    # queued (validated) append batches awaiting coalesced programming
+    _append_buf: list = field(default_factory=list, repr=False)
 
     def __post_init__(self):
         if self.telemetry is None:
@@ -380,18 +413,196 @@ class BatchScheduler:
                     self.telemetry.count("threshold_senses", thr)
                 self.telemetry.count("materialization_programs")
 
-    # -- mutations (a later slice) ------------------------------------------
-    def append(self, rows):
-        raise NotImplementedError(_MUTATIONS)
+    # -- incremental ingest --------------------------------------------------
+    def _refuse_pending(self, what: str, spans: str = "mutation") -> None:
+        if self._pending:
+            raise RuntimeError(
+                f"{what}() with {len(self._pending)} queries pending; "
+                f"flush() first so no ticket spans the {spans}"
+            )
 
-    def delete(self, row_ids):
-        raise NotImplementedError(_MUTATIONS)
+    def append(self, rows: dict[str, object]) -> int:
+        """Append rows to the live index; returns pages ESP-programmed.
 
-    def update(self, row_ids, rows):
-        raise NotImplementedError(_MUTATIONS)
+        The whole batch is validated against the ingest schema (exact
+        column set, equal lengths, non-negative values, word capacity)
+        *before* any page state mutates, and appends are refused while
+        queries are pending.  Only delta pages are programmed; plans over
+        columns whose index metadata did not change stay warm.  With
+        ``coalesce_appends`` the (fully validated) batch is queued instead
+        and returns 0; the next ``flush()`` or :meth:`apply_appends`
+        programs all queued batches as ONE delta per touched page.
+        """
+        self._refuse_pending("append")
+        try:
+            return self._admit_append(rows)
+        except ValueError as err:
+            if not (self.grow_on_overflow and "overflows" in str(err)):
+                raise
+            # capacity growth rides the compaction rebuild (the failed
+            # attempt validated before mutating), leaving the batch plus
+            # the original headroom — or twice the batch — free
+            b = len(next(iter(rows.values())))
+            self.compact(
+                reserve_rows=b
+                + max(2 * b, self.store.capacity_rows - self.store.live_rows)
+            )
+            return self._admit_append(rows)
 
-    def compact(self, reserve_rows=None):
-        raise NotImplementedError(_MUTATIONS)
+    def _admit_append(self, rows: dict) -> int:
+        if self.coalesce_appends:
+            queue_append(self.store, self._append_buf, rows)
+            return 0
+        return self._program_append(rows)
+
+    def _program_append(self, rows: dict) -> int:
+        delta = self.store.append(rows)  # validates before mutating
+        programs, words = self.store.program_delta(
+            self.device, delta, telemetry=self.telemetry
+        )
+        self.telemetry.count("rows_appended", delta.rows)
+        self.telemetry.count("esp_delta_programs", programs)
+        self._count_programmed_words(delta, words)
+        return programs
+
+    def _count_programmed_words(self, delta, physical: int) -> None:
+        """Write-amplification accounting for one client mutation's delta:
+        ``words_programmed`` counts the words physically ESP-programmed
+        (multi-level packing merges co-resident pages), ``words_written``
+        the words the mutation changed (the per-logical-page sum).
+        Compaction adds to the physical side only."""
+        self.telemetry.count("words_programmed", physical)
+        self.telemetry.count(
+            "words_written", sum(int(pd.words.shape[0]) for pd in delta.pages)
+        )
+
+    @property
+    def appends_queued(self) -> int:
+        return len(self._append_buf)
+
+    def apply_appends(self) -> int:
+        """Program every queued append batch as one coalesced delta (a page
+        touched by many queued batches programs ONCE); returns the pages
+        programmed.  Runs at the top of ``flush()``, so queries submitted
+        after an append always see its rows."""
+        if not self._append_buf:
+            return 0
+        rows = merge_appends(self._append_buf)
+        self.telemetry.count("append_batches_coalesced", len(self._append_buf))
+        self._append_buf.clear()
+        return self._program_append(rows)
+
+    # -- deletes / updates / compaction --------------------------------------
+    def delete(self, row_ids) -> int:
+        """Tombstone rows; returns pages ESP-programmed (always 1).
+
+        Queued appends apply first so ``row_ids`` address the up-to-date
+        table; refused while queries are pending.  One delta-page program
+        of the tombstone page; no region epoch moves, so every cached plan
+        stays warm.  May trigger the auto-compaction policy.
+        """
+        self._refuse_pending("delete")
+        self.apply_appends()
+        delta = self.store.delete(row_ids)
+        programs, words = self.store.program_delta(
+            self.device, delta, telemetry=self.telemetry
+        )
+        self.telemetry.count("rows_deleted", len(np.asarray(row_ids)))
+        self.telemetry.count("esp_delta_programs", programs)
+        self._count_programmed_words(delta, words)
+        self.telemetry.gauge("tombstone_density", self.store.tombstone_density)
+        self._maybe_compact()
+        return programs
+
+    def update(self, row_ids, rows: dict[str, object]) -> int:
+        """Update = delete + append: tombstone ``row_ids``, append ``rows``
+        (fresh row ids at the tail); returns pages programmed.  Both halves
+        validate BEFORE either mutates."""
+        self._refuse_pending("update")
+        self.apply_appends()
+        ids = self.store.check_delete(row_ids)
+        arrays = {c: np.asarray(v) for c, v in rows.items()}
+        b = self.store.check_append(arrays)
+        if b != ids.size:
+            raise ValueError(
+                f"update() got {ids.size} row ids but {b} replacement rows"
+            )
+        n = self.delete(ids)
+        n += self.append(arrays)
+        self.telemetry.count("rows_updated", ids.size)
+        return n
+
+    def _maybe_compact(self) -> bool:
+        """The background-compaction policy: rebuild once tombstone density
+        crosses ``compact_density`` (at mutation boundaries only)."""
+        if (
+            self.compact_density is None
+            or self.store.tombstone_density < self.compact_density
+        ):
+            return False
+        self.compact()
+        return True
+
+    def compact(self, reserve_rows: int | None = None) -> dict:
+        """Rewrite the stripe without its tombstoned rows; returns stats.
+
+        NAND programs only 1->0, so reclaiming tombstoned capacity erases
+        every block the stripe occupies (one P/E cycle each, charged in the
+        SSD projection) and ESP-reprograms the surviving rows, renumbered
+        densely in old id order.  ``reserve_rows`` sets the fresh append
+        headroom and defaults to the stripe's full pre-compaction capacity.
+        The reprogram counts toward physical (not logical) programmed
+        words.  The returned ``seconds`` split into ``to_table_s``,
+        ``rebuild_s`` (erase + host re-ingest) and ``program_s``; the
+        device snapshot is uploaded whole by the next flush.
+        """
+        self._refuse_pending("compact", "rebuild")
+        self.apply_appends()
+        store, tele = self.store, self.telemetry
+        t0 = time.perf_counter()
+        dropped = store.deleted_rows
+        live = store.live_bits()
+        table = {c: v[live] for c, v in store.to_table().items()}
+        if reserve_rows is None:
+            reserve_rows = store.capacity_rows - store.live_rows
+        schema = {c: ci.values for c, ci in store.columns.items()}
+        t_table = time.perf_counter()
+        erased = self.device.erase_rebuild()
+        store.rebuild(table, reserve_rows=reserve_rows, schema=schema)
+        t_rebuild = time.perf_counter()
+        _, words = store.program(self.device)
+        self.device.reset_after_rebuild()
+        self._flush_programs.clear()
+        self._extras_cache.clear()
+        self._cse_cache.clear()
+        self._mask_cache = None
+        tele.count("compactions")
+        tele.count("block_erases", erased)
+        tele.count("words_programmed", words)
+        tele.count("compaction_rows_dropped", dropped)
+        tele.gauge("tombstone_density", 0.0)
+        self._record_wear()
+        t1 = time.perf_counter()
+        tele.span("compact", "flush", t0, t1, args={"erased": erased})
+        tele.observe("compact_s", t1 - t0)
+        return {
+            "rows_dropped": dropped,
+            "live_rows": store.num_rows,
+            "capacity_rows": store.capacity_rows,
+            "blocks_erased": erased,
+            "words_reprogrammed": words,
+            "seconds": t1 - t0,
+            "to_table_s": t_table - t0,
+            "rebuild_s": t_rebuild - t_table,
+            "program_s": t1 - t_rebuild,
+        }
+
+    def _record_wear(self) -> None:
+        """Per-block wear gauges (P/E cycles) after erase-heavy operations."""
+        pec = self.device.pec
+        if pec:
+            self.telemetry.gauge("max_pec", max(pec.values()))
+            self.telemetry.gauge("mean_pec", sum(pec.values()) / len(pec))
 
     # -- admission ----------------------------------------------------------
     def submit(self, query: Query) -> int:
@@ -414,7 +625,9 @@ class BatchScheduler:
 
     # -- serving -------------------------------------------------------------
     def flush(self) -> dict[int, QueryResult]:
-        """Compile, batch-execute, and aggregate all pending queries."""
+        """Compile, batch-execute, and aggregate all pending queries
+        (queued appends are programmed first)."""
+        self.apply_appends()
         if not self._pending:
             return {}
         self._materialize_hot()

@@ -11,9 +11,10 @@ reference.  The state carried is:
 * the packed buffer and slot map of the ``PackedStore`` (``_buf[:_n]``,
   ``_slots``, ``_words``, ``planes``, ``epoch``, ``region_epochs``);
 * the ``Layout`` placements, block fills and allocation state;
-* the page ``program_configs``, the non-ESP set, ``pec`` and
-  ``esp_programs``;
-* the ``BitmapStore``'s logical pages, column metadata and epochs.
+* the page ``program_configs``, the non-ESP set, ``pec``,
+  ``esp_programs`` and ``block_erases``;
+* the ``BitmapStore``'s logical pages (the tombstone page included),
+  column metadata, epochs and ``deleted_rows``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ def export_state(store, device) -> tuple[dict[str, np.ndarray], dict]:
             "non_esp": sorted(device._non_esp),
             "pec": [[b, c] for b, c in device.pec.items()],
             "esp_programs": device.esp_programs,
+            "block_erases": device.block_erases,
         },
         "bitmap": {
             "num_rows": store.num_rows,
@@ -89,10 +91,6 @@ def load_reference_state(
     """Rebuild a port ``BitmapStore`` + ``FlashDevice`` (on ``device``)
     from :func:`export_state` output; serving them answers exactly as the
     exported deployment does."""
-    if meta["bitmap"]["deleted_rows"]:
-        raise NotImplementedError(
-            "tombstoned rows need the mutations slice (ROADMAP A4)"
-        )
     lm = meta["layout"]
     layout = Layout(wls_per_block=lm["wls_per_block"], levels=lm["levels"])
     layout.restore(
@@ -130,6 +128,7 @@ def load_reference_state(
     dev._non_esp = set(dm["non_esp"])
     dev.pec = {b: c for b, c in dm["pec"]}
     dev.esp_programs = dm["esp_programs"]
+    dev.block_erases = dm["block_erases"]
 
     bm = meta["bitmap"]
     store = BitmapStore(
@@ -147,5 +146,6 @@ def load_reference_state(
         column_epochs=dict(bm["column_epochs"]),
         capacity_rows=bm["capacity_rows"],
         min_words=bm["min_words"],
+        deleted_rows=bm["deleted_rows"],
     )
     return store, dev

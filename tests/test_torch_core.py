@@ -220,8 +220,10 @@ def test_packed_store_layout_and_epochs():
     np.testing.assert_array_equal(to_uint32(s["col=1"]), a)
     assert s.epoch == 2 and s.region_epochs == {"col": 2}  # scratch: no bump
     assert s.snapshot("cpu") is snap and s.snapshot_uploads == 1
+    # a rewrite lands in the cached snapshot in place: no second upload
     s["col=1"] = b
-    assert s.snapshot("cpu") is not snap and s.snapshot_uploads == 2
+    assert s.snapshot("cpu") is snap and s.snapshot_uploads == 1
+    np.testing.assert_array_equal(to_uint32(snap[s.slot("col=1"), :10]), b)
     with pytest.raises(ValueError):
         s["x"] = _words(rng, 11)
 

@@ -122,6 +122,23 @@ def test_smoke_mix_matches_reference(optimize):
     assert got[T][1][0]["host_transfers"] == got[T][1][0]["flushes"] == 1
 
 
+def test_smoke_mutation_path_rehearsal():
+    """chip_smoke.py's live-index phase on the CPU at 2^13 rows: every
+    step's answers equal numpy, B1 calls equal their plain version, and
+    the snapshot is uploaded whole once, and once more at compact()."""
+    out = _chip_smoke().mutation_path("cpu", 1 << 13, log=lambda line: None)
+    steps = {s["step"]: s for s in out["steps"]}
+    assert len(steps) == 14
+    assert [s["snapshot_uploads"] for s in out["steps"]] == [1] * 12 + [2, 2]
+    assert steps["append_4"]["slots"] == steps["append_3"]["slots"] + 4  # 2 pages, 2 slices
+    assert steps["append_4"]["b1_calls_checked"] > 0 and steps["compact"]["b1_calls_checked"] > 0
+    assert steps["compact"]["rows_dropped"] >= 0.4 * steps["delete_wave"]["rows"]
+    for s in out["steps"][:12]:  # every delta programmed was written in place
+        written = s["snapshot_bytes_written"] + s["flush_snapshot_bytes_written"]
+        assert written >= s["bytes_programmed"] > 0
+    assert steps["coalesced_appends_4"]["snapshot_bytes_written"] == 0  # queued until the flush
+
+
 def test_answers_match_numpy():
     table = _table(1)
     store, dev = _deploy(T, table, device="cpu")
@@ -158,13 +175,17 @@ def test_load_reference_state_serves_identically():
 
 
 def test_unported_surfaces_raise_naming_the_roadmap():
+    """The mutations (ROADMAP A4) are ported: they run and raise nothing;
+    the sharded fleet (A6) is still absent from the port's package."""
     store, dev = _deploy(T, _table(), device="cpu")
     sched = T.BatchScheduler(dev, store)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        sched.append({"country": [1], "age": [20], "device": [0]})
-    for call in (lambda: sched.delete([0]), lambda: sched.update([0], {}), sched.compact):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            call()
+    assert sched.append({"country": [1], "age": [20], "device": [0]}) > 0
+    assert sched.delete([0]) == 1
+    assert sched.update([1], {"country": [2], "age": [30], "device": [1]}) > 0
+    assert sched.compact()["rows_dropped"] == 2
+    for name in ("ShardedBitmapStore", "ShardedFlashQL", "build_sharded_flashql"):
+        with pytest.raises(AttributeError):
+            getattr(T, name)
 
 
 def test_noisy_page_takes_the_legacy_path():
