@@ -16,7 +16,10 @@ drives the port's three paths on the card:
    live index at the same page size: appends, coalesced appends, deletes,
    an update, a delete wave and a compaction, with the flush served and
    checked against numpy after every step and the device snapshot
-   written in place (``mutation_path``);
+   written in place (``mutation_path``); and the sharded fleet: the
+   same table striped over 4 devices whose snapshots share one fleet
+   tensor, served lockstep and pipelined, appended to and deleted from,
+   then a range-striped fleet that prunes shards (``shard_path``);
 2. the one-pass BMI count (kernel mws_count): users active on every one
    of the last 30 and 365 days at the paper's 800M users, held against
    the plain version and against mws + popcount, run when nothing else is
@@ -69,6 +72,7 @@ _OPS_PER_S = 67e12
 REPLACES = {
     "mws": "src/repro/kernels/mws/mws.py:89",
     "mws_optimizer_off": "src/repro/kernels/mws/mws.py:89",
+    "mws_fleet": "src/repro/kernels/mws/mws.py:89",
     "popcount": "src/repro/kernels/popcount/popcount.py:54",
     "popcount_aggregates": "src/repro/kernels/popcount/popcount.py:54",
     "mws_count": "src/repro/kernels/mws_count/mws_count.py:84",
@@ -80,6 +84,7 @@ REPLACES = {
 SOURCES = {
     "mws": "src/repro_torch/csrc/mws.cu",
     "mws_optimizer_off": "src/repro_torch/csrc/mws.cu",
+    "mws_fleet": "src/repro_torch/csrc/mws.cu",
     "popcount": "src/repro_torch/csrc/popcount.cu",
     "popcount_aggregates": "src/repro_torch/csrc/popcount.cu",
     "mws_count": "src/repro_torch/csrc/mws_count.cu",
@@ -1023,10 +1028,282 @@ def mutation_path(device, rows: int, card: str | None = None, log=log) -> dict:
     return out
 
 
-def device_profile(fn) -> tuple[float, list]:
+# -- phase 3c: the sharded fleet -------------------------------------------------
+
+SHARDS = 4
+SHARD_TIMED_FLUSHES = 2  # each flush un-stripes its MASKs over every row on the host (3-4 s)
+ROUTED_ROWS = 1 << 25  # fleet B, cut for the time limit
+
+
+def shard_path(device, rows: int, routed_rows: int, card: str | None = None, log=log) -> dict:
+    """FlashQL over a fleet of SHARDS devices on one card, every shard's
+    snapshot a slab of one fleet tensor.  Fleet A stripes the main path's
+    table round-robin and serves build_queries, then build_queries with
+    build_aggregates beside it, lockstep (each signature group one launch
+    sequence over the fleet tensor) and then pipelined (one fused program
+    per shard), every answer checked against numpy; the kernel launch
+    counts are set to 0 just before each mode's first flush and read just
+    after, and every B1, B2 and B3 call of that flush is held against its
+    plain version; one warm COUNT/MASK flush per mode runs under
+    torch.profiler.  Host transfers per flush: one per reduce signature
+    lockstep, one per shard program pipelined.  Then an append of
+    rows/128 rows (each stripe's reserve) and a delete of as many random
+    rows, each followed by the checked COUNT/MASK flush, with every
+    shard's snapshot_uploads flat.  Fleet B (``routed_rows``, range
+    striping on ``country``, pipelined) drives stripe pruning and routed
+    depths."""
+    import torch
+
+    from repro_torch import query as q
+    from repro_torch.core.bitops import num_words
+    from repro_torch.core.store import PackedStore
+    from repro_torch.kernels.mws import mws_gather
+    from repro_torch.kernels.popcount import popcount, popcount_ref
+    from repro_torch.kernels.threshold import threshold_reduce, threshold_ref
+    from repro_torch.query import aggregate as agg_mod
+    from repro_torch.query import device as dev_mod
+    from repro_torch.query import shard as shard_mod
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    reserve = rows // 128  # 2^20 at the main path's rows
+    t0 = time.perf_counter()
+    table = make_table(rows, SEED)
+    queries = build_queries(q, SEED)
+    mixed = queries + build_aggregates(q, SEED)
+    sq = q.build_sharded_flashql(
+        table, SHARDS, policy="roundrobin", reserve_rows=reserve, warmup=queries[:3], device=device
+    )
+    oracle = Oracle(table, num_words(rows))
+    st0 = sq.store.shards[0]
+    ingest_s = time.perf_counter() - t0
+    log(
+        f"shard path: fleet A, {rows} rows over {SHARDS} shards ({st0.num_rows} rows + "
+        f"{reserve} reserved each), {st0.words} words/page, "
+        f"{sq.devices[0].store.num_slots} slots, ingest+program {ingest_s:.3f} s"
+    )
+
+    kernels = {"mws": mws_gather, "threshold": threshold_reduce, "popcount": popcount}
+    rec = Recorder()
+    unstripe: list[float] = []
+    wt = {"words": 0}
+    orig = (
+        dev_mod.mws_gather,
+        dev_mod.threshold_reduce,
+        agg_mod.popcount,
+        shard_mod.merge_mask_batch,
+        PackedStore._write_through,
+    )
+
+    def merge_mask_batch(parts_list, sstore):
+        t = time.perf_counter()
+        out = orig[3](parts_list, sstore)
+        unstripe.append(time.perf_counter() - t)
+        return out
+
+    def write_through(self, slot, start, stop):
+        orig[4](self, slot, start, stop)
+        if self._dev_buf is not None:
+            wt["words"] += stop - start
+
+    def reduce_groups(qs) -> int:
+        """Reduce signatures of one lockstep flush: its host transfers."""
+        _, groups = agg_mod.group_members([x.agg for x in qs], [sq.store.shards[0]] * len(qs))
+        return len(groups)
+
+    def serve_checked(qs, label=None, mask_sample=4096):
+        st = sq.stats()
+        if label is not None:
+            for fn in kernels.values():
+                fn.launches = 0
+            mws_gather.variant_launches = dict.fromkeys(mws_gather.variant_launches, 0)
+            rec.tag, rec.active = f"_{label}", True
+        t = time.perf_counter()
+        results = sq.serve(qs)
+        seconds = time.perf_counter() - t
+        rec.active = False
+        out = {"seconds": seconds, "host_transfers": sq.stats()["host_transfers"] - st["host_transfers"]}
+        if label is not None:
+            out["launches"] = {k: fn.launches for k, fn in kernels.items()}
+            out["mws_variants"] = dict(mws_gather.variant_launches)
+        check_results(qs, results, oracle, mask_sample=mask_sample)
+        return out
+
+    def check_calls(label) -> dict:
+        """Every recorded B2 and B3 call of a flush against its plain version."""
+        n = {}
+        for name, kern, plain in (("popcount", popcount, popcount_ref), ("threshold", threshold_reduce, threshold_ref)):
+            calls = rec.calls.pop(f"{name}_{label}", [])
+            for args, kwargs in calls:
+                got, want = kern(*args, **kwargs), plain(*args, **kwargs)
+                if got.shape != want.shape or not torch.equal(got, want):
+                    raise AssertionError(f"{label}: a {name} call differs from its plain version")
+            n[name] = len(calls)
+        return n
+
+    modes: dict[str, dict] = {}
+    dev_mod.mws_gather = rec.wrap("mws", mws_gather)
+    dev_mod.threshold_reduce = rec.wrap("threshold", threshold_reduce)
+    agg_mod.popcount = rec.wrap("popcount", popcount)
+    shard_mod.merge_mask_batch = merge_mask_batch
+    PackedStore._write_through = write_through
+    try:
+        for mode in ("lockstep", "pipelined"):
+            sq.pipeline = mode == "pipelined"
+            for mix, qs in (("count_mask", queries), ("aggregates", mixed)):
+                label = f"shard_{mode}" if mix == "count_mask" else None
+                first = serve_checked(qs, label)
+                want = reduce_groups(qs) if mode == "lockstep" else len(sq.store.active)
+                if first["host_transfers"] != want:
+                    raise AssertionError(f"{mode} {mix}: {first['host_transfers']} host transfers, not {want}")
+                if label is not None and on_card:
+                    for k, v in first["launches"].items():
+                        if v < 1:
+                            raise AssertionError(f"kernel {k} never launched on the {mode} fleet")
+                del unstripe[:]
+                lat = []
+                for _ in range(SHARD_TIMED_FLUSHES):
+                    lat.append(serve_checked(qs, mask_sample=0)["seconds"])
+                r = {
+                    "queries": len(qs),
+                    "first_flush_s": first["seconds"],
+                    "warm_flush_p50_s": statistics.median(lat),
+                    "qps": len(qs) * len(lat) / sum(lat),
+                    "host_transfers_per_flush": first["host_transfers"],
+                    "mask_unstripe_s": statistics.median(unstripe) if unstripe else None,
+                }
+                if label is not None:
+                    r["launches_first_flush"] = first["launches"]
+                    r["mws_variants_first_flush"] = first["mws_variants"]
+                    r["calls_checked"] = check_calls(label)
+                if on_card and label is not None:
+                    r["profile"] = profile_fleet_flush(sq, qs)
+                modes[f"{mode}_{mix}"] = r
+                log(
+                    f"shard path [{mode}, {mix}]: {r['queries']} queries/flush, first flush "
+                    f"{r['first_flush_s']:.4f} s, warm flush p50 {r['warm_flush_p50_s'] * 1e3:.3f} ms "
+                    f"({r['qps']:.1f} q/s over {len(lat)} flushes), host transfers per flush "
+                    f"{r['host_transfers_per_flush']}, MASK un-striping {r['mask_unstripe_s']} s per flush"
+                    + (
+                        f", launches per flush {r['launches_first_flush']} (mws by variant "
+                        f"{r['mws_variants_first_flush']})"
+                        if label is not None
+                        else ""
+                    )
+                )
+                if "profile" in r:
+                    log(f"  one warm flush under torch.profiler [{mode}, {mix}]: {r['profile']}")
+
+        # the live fleet: an append and a delete, the fleet tensor taking
+        # the words in place
+        uploads = [d.store.snapshot_uploads for d in sq.devices]
+        rebuilds = sq.fleet_rebuilds
+        sq.pipeline = False
+        rng = np.random.default_rng(SEED + 13)
+        mutations = {}
+        resident, live = table, None
+        for name in ("append", "delete"):
+            wt0 = wt["words"]
+            t = time.perf_counter()
+            if name == "append":
+                batch = make_batch(rng, reserve, oracle.points)
+                sq.append(batch)
+                sync()
+                resident = {c: np.concatenate([v, batch[c]]) for c, v in resident.items()}
+                oracle.add(batch)
+            else:
+                ids = rng.choice(sq.store.num_rows, reserve, replace=False)
+                sq.delete(ids)
+                sync()
+                live = np.ones(sq.store.num_rows, bool)
+                live[ids] = False
+                oracle.add({c: v[ids] for c, v in resident.items()}, -1)
+            seconds = time.perf_counter() - t
+            wt1 = wt["words"]
+            oracle.resident(resident, live)
+            oracle.words = num_words(sq.store.num_rows)
+            flush = serve_checked(queries)
+            mutations[name] = {
+                "seconds": seconds,
+                "snapshot_bytes_written": (wt1 - wt0) * 4,
+                # rebuilt materialized pages
+                "flush_snapshot_bytes_written": (wt["words"] - wt1) * 4,
+                "flush_s": flush["seconds"],
+                "snapshot_uploads": [d.store.snapshot_uploads for d in sq.devices],
+                "fleet_rebuilds": sq.fleet_rebuilds,
+            }
+            log(json.dumps({"shard_mutation": {"step": name, **mutations[name]}, **({"card": card} if card else {})}))
+        if [d.store.snapshot_uploads for d in sq.devices] != uploads:
+            raise AssertionError("an append or delete uploaded a shard's whole snapshot")
+    finally:
+        (
+            dev_mod.mws_gather,
+            dev_mod.threshold_reduce,
+            agg_mod.popcount,
+            shard_mod.merge_mask_batch,
+            PackedStore._write_through,
+        ) = orig
+    fleet = sq._fleet
+    out = {
+        "rows": rows,
+        "shards": SHARDS,
+        "words": st0.words,
+        "ingest_s": ingest_s,
+        "modes": modes,
+        "mutations": mutations,
+        "fleet": {
+            "shape": list(fleet.data.shape),
+            "bytes": fleet.data.numel() * 4,
+            "rebuilds": sq.fleet_rebuilds,
+            "rebuilds_by_writes": sq.fleet_rebuilds - rebuilds,
+            "bytes_copied": sq.fleet_bytes_copied,
+        },
+        "recorded": rec,
+    }
+    del sq, table, resident, live, oracle, fleet
+    gc.collect()
+
+    # fleet B: range striping on country, pipelined: stripe pruning and
+    # routed depths
+    t0 = time.perf_counter()
+    table = make_table(routed_rows, SEED + 11)
+    sq = q.build_sharded_flashql(
+        table, SHARDS, policy="range", stripe_key="country", pipeline=True, warmup=queries[:3], device=device
+    )
+    oracle = Oracle(table, num_words(routed_rows))
+    ingest_s = time.perf_counter() - t0
+    first = serve_checked(queries)
+    lat = [serve_checked(queries, mask_sample=0)["seconds"] for _ in range(SHARD_TIMED_FLUSHES)]
+    st = sq.stats()
+    if st["shards_pruned"] < 1:
+        raise AssertionError("fleet B pruned no shard")
+    out["routed"] = {
+        "rows": routed_rows,
+        "ingest_s": ingest_s,
+        "first_flush_s": first["seconds"],
+        "warm_flush_p50_s": statistics.median(lat),
+        "qps": len(queries) * len(lat) / sum(lat),
+        "shards_pruned": st["shards_pruned"],
+        "host_transfers": st["host_transfers"],
+        "fused_dispatches": st["fused_dispatches"],
+        "flushes": st["flushes"],
+        "stripe_bounds": sq.store.stripe_bounds,
+    }
+    log(json.dumps({"shard_routed": out["routed"], **({"card": card} if card else {})}))
+    del sq, table, oracle
+    gc.collect()
+    return out
+
+
+def device_profile(fn, intervals: list | None = None) -> tuple[float, list]:
     """Run ``fn`` once under ``torch.profiler``; its wall time (ms) and the
     self time of every device-side kernel, copy and memset as
-    ``(ms, count, name)``, largest first."""
+    ``(ms, count, name)``, largest first.  ``intervals``, if given,
+    receives each device event as ``(start_us, end_us, name)``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1046,6 +1323,12 @@ def device_profile(fn) -> tuple[float, list]:
             us = e.self_cuda_time_total
         dev.append((us / 1e3, e.count, e.key))
     dev.sort(reverse=True)
+    if intervals is not None:
+        intervals.extend(
+            (e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+        )
     return wall_ms, dev
 
 
@@ -1058,6 +1341,26 @@ def profile_flush(sched, queries) -> dict:
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if dev else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if dev else "not measured",
+        "top": [[key[:70], n, ms] for ms, n, key in dev[:8]],
+    }
+
+
+def profile_fleet_flush(sq, queries) -> dict:
+    """``profile_flush`` for a sharded fleet, plus how many of the flush's
+    device-to-host payload copies ran while a kernel ran (the pipelined
+    gather of shard k overlapping shard k+1's program)."""
+    spans: list = []
+    wall_ms, dev = device_profile(lambda: sq.serve(queries), spans)
+    busy_ms = sum(ms for ms, _, _ in dev)
+    kernels = [(a, b) for a, b, name in spans if not name.startswith("Memcpy") and not name.startswith("Memset")]
+    copies = [(a, b) for a, b, name in spans if name.startswith("Memcpy DtoH")]
+    overlapping = sum(any(a < kb and ka < b for ka, kb in kernels) for a, b in copies)
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if dev else "not measured",
+        "device_idle_share": 1 - busy_ms / wall_ms if dev else "not measured",
+        "dtoh_copies": len(copies) if spans else "not measured",
+        "dtoh_copies_overlapping_a_kernel": overlapping if spans else "not measured",
         "top": [[key[:70], n, ms] for ms, n, key in dev[:8]],
     }
 
@@ -1262,6 +1565,27 @@ def kernel_report(rec, res: dict, card: str) -> list[dict]:
         rows.append(kernel_row(name, kern, plain, launches, nbytes, ops, bw, shape))
         log(f"kernel {name}: moves {nbytes} bytes and {ops} operations")
     return rows
+
+
+def fleet_kernel_row(rec, modes: dict, card: str) -> dict:
+    """mws at the largest shape of the lockstep fleet's COUNT/MASK flush:
+    one launch over every shard's rows of the fleet tensor, beside the
+    streaming variant at the same shape."""
+    c = mws_call(*rec.largest("mws_shard_lockstep", lambda src, idx, *a, **k: idx.numel()))
+    first = modes["lockstep_count_mask"]
+    return kernel_row(
+        "mws_fleet",
+        c["kern"],
+        c["plain"],
+        first["launches_first_flush"]["mws"],
+        c["bytes_min"],
+        c["ops"],
+        hbm_rate(card),
+        c["shape"],
+        variant=c["variant"],
+        variants_first_flush=first["mws_variants_first_flush"],
+        streaming_ms=time_ms(c["streaming"], KERNEL_REPS),
+    )
 
 
 def kernel_row(name, kern, plain, launches, bytes_min, ops, bw, shape, **extra) -> dict:
@@ -1707,7 +2031,17 @@ def main() -> int:
     cases = check_kernels("cuda") + check_signcomp("cuda")
     log(f"kernels vs plain versions: {cases} cases bit-exact ({time.perf_counter() - t0:.2f} s)")
 
-    log(json.dumps({"reduced": {"rows": [PAPER_ROWS, ROWS], "why": "the smoke's time limit"}}))
+    log(
+        json.dumps(
+            {
+                "reduced": {
+                    "rows": [PAPER_ROWS, ROWS],
+                    "routed_fleet_rows": [ROWS, ROUTED_ROWS],
+                    "why": "the smoke's time limit",
+                }
+            }
+        )
+    )
     res = main_path("cuda", ROWS)
     rec = res.pop("recorded")
     report = kernel_report(rec, res, kind)
@@ -1726,6 +2060,27 @@ def main() -> int:
     log(json.dumps({"main_path": summary, "rows": ROWS, "words": res["words"], "card": card_line}))
     del res
     gc.collect()
+
+    t0 = time.perf_counter()
+    shard = shard_path("cuda", ROWS, ROUTED_ROWS, card=card_line)
+    rec = shard.pop("recorded")
+    fleet_row = fleet_kernel_row(rec, shard["modes"], kind)
+    report.append(fleet_row)
+    for mode in ("lockstep", "pipelined"):
+        per_flush = b1_per_flush(rec.calls[f"mws_shard_{mode}"], hbm_rate(kind))
+        per_flush["launches_by_variant"] = shard["modes"][f"{mode}_count_mask"]["mws_variants_first_flush"]
+        log(json.dumps({"b1_per_flush": per_flush, "fleet": mode, "card": card_line}))
+    del rec
+    log(
+        f"kernel {fleet_row['name']}: {fleet_row['ms']:.4f} ms at {fleet_row['shape']}, plain "
+        f"{fleet_row['plain_ms']:.4f} ms, bound {fleet_row['bound_ms']:.4f} ms ({fleet_row['bound_by']}), "
+        f"{fleet_row['launches']} launches per flush, {fleet_row['variant']} variant"
+    )
+    log(json.dumps({"shard_path": shard, "card": card_line}))
+    log(f"shard path: {time.perf_counter() - t0:.1f} s")
+    del shard
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     mut = mutation_path("cuda", ROWS, card=card_line)

@@ -39,6 +39,16 @@ _ONES = np.uint32(0xFFFFFFFF)
 _SCRATCH_PREFIX = "__scratch"
 
 
+def _canonical(device) -> torch.device:
+    """``device`` with its index: ``"cuda"`` names the current card, and
+    a tensor on it reports ``cuda:0`` (or whichever), so snapshots are
+    compared by canonical devices, never by spelling."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def page_region(name: str) -> str | None:
     """Epoch region of a page name, or ``None`` for planner scratch pages.
 
@@ -103,6 +113,11 @@ class PackedStore:
     @property
     def num_slots(self) -> int:
         return self._n
+
+    @property
+    def capacity(self) -> int:
+        """Slots the host buffer holds before its next doubling."""
+        return 0 if self._buf is None else self._buf.shape[0]
 
     def __len__(self) -> int:
         return len(self._slots)
@@ -209,7 +224,7 @@ class PackedStore:
         The tensor is always a copy, never a view of the host buffer (on
         the CPU too), so a host reallocation cannot leave it stale.
         """
-        device = torch.device("cpu" if device is None else device)
+        device = _canonical("cpu" if device is None else device)
         if self._dev_buf is None or self._snapshot_device != device:
             assert self._buf is not None, "empty store has no snapshot"
             dev = torch.empty(self._buf.shape, dtype=torch.int32, device=device)
@@ -220,3 +235,41 @@ class PackedStore:
         if self._snapshot is None or self._snapshot.shape[0] != self._n:
             self._snapshot = self._dev_buf[: self._n]
         return self._snapshot
+
+    def bind(self, view: torch.Tensor) -> int:
+        """Make ``view`` — ``(rows, planes * words_per_plane)`` int32 with
+        rows at least the host capacity, typically one shard's slab of a
+        fleet tensor — this store's device buffer, holding its snapshot.
+
+        The current snapshot moves in by a device-to-device copy when the
+        store already has one on ``view``'s device; otherwise the host
+        buffer is uploaded whole, which counts in ``snapshot_uploads``.
+        Later writes land in ``view`` in place, until a new slot outgrows
+        it (then :meth:`_write_through` moves the store to a tensor of its
+        own).  Returns the bytes copied into ``view``.
+        """
+        assert self._buf is not None, "empty store has no snapshot"
+        if view.shape[0] < self._buf.shape[0] or view.shape[1] != self._buf.shape[1]:
+            raise ValueError(
+                f"view {tuple(view.shape)} cannot hold a store of "
+                f"{tuple(self._buf.shape)}"
+            )
+        n = self._n
+        if self._dev_buf is not None and self._snapshot_device == view.device:
+            view[:n].copy_(self._dev_buf[:n])
+        else:
+            view[:n].copy_(to_words(self._buf[:n]))
+            self.snapshot_uploads += 1
+        self._dev_buf, self._snapshot_device = view, view.device
+        self._snapshot = None
+        return n * view.shape[1] * view.element_size()
+
+    def bound_to(self, view: torch.Tensor) -> bool:
+        """Whether ``view`` (the very tensor given to :meth:`bind`) is
+        still this store's device buffer."""
+        return self._dev_buf is view
+
+    def plane_view(self, device=None) -> torch.Tensor:
+        """The snapshot as ``(planes, slots, words_per_plane)``."""
+        snap = self.snapshot(device)
+        return snap.reshape(self._n, self.planes, self.words_per_plane).transpose(0, 1)

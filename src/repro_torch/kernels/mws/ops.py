@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.bitops import BitOp
+from repro_torch.core.bitops import BitOp, reduce_words
 from repro_torch.kernels import _build
 from repro_torch.kernels.mws.ref import mws_gather_ref
 
@@ -175,6 +175,20 @@ def mws_gather(
 
 mws_gather.launches = 0  # every launch, of either variant
 mws_gather.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def parabit_reduce(stack: torch.Tensor, op: BitOp) -> torch.Tensor:
+    """The ParaBit baseline: a serial pairwise ``op``-fold over axis 0 of
+    an (N, W) word stack -> (W,), one operation per operand.
+
+    Each step reads the whole running result and one operand and writes
+    the result back, as ParaBit senses one operand at a time; it computes
+    what :func:`mws_reduce` does in one pass.  Plain torch on any device
+    (:func:`repro_torch.core.bitops.reduce_words`).
+    """
+    if stack.dim() != 2 or stack.shape[0] == 0:
+        raise ValueError(f"expected a non-empty (N, W) stack, got {tuple(stack.shape)}")
+    return reduce_words(stack, op)
 
 
 def mws_reduce(stack: torch.Tensor, op: BitOp) -> torch.Tensor:

@@ -3,7 +3,8 @@
 The port's mirror of ``repro.query``: serving through
 :class:`BatchScheduler` on one device, with every aggregate (COUNT, MASK,
 SUM, AVG, MIN, MAX, TOP-K, GROUP BY), over a live index (append, delete,
-update, compact).  Sharded serving is a later slice (see ROADMAP.md).
+update, compact), and over a fleet of devices striped by rows
+(:class:`ShardedFlashQL`).
 
 * :mod:`repro_torch.query.ast` — the predicate AST and aggregate specs;
 * :mod:`repro_torch.query.aggregate` — the aggregation pipeline;
@@ -14,7 +15,10 @@ update, compact).  Sharded serving is a later slice (see ROADMAP.md).
 * :mod:`repro_torch.query.device` — ``FlashDevice``: batched execution on
   the gather-reduce, threshold and popcount kernels;
 * :mod:`repro_torch.query.scheduler` — ``BatchScheduler``;
-* :mod:`repro_torch.query.state` — loading a reference deployment's state;
+* :mod:`repro_torch.query.shard` — ``ShardedBitmapStore`` and
+  ``ShardedFlashQL``: the sharded fleet, its snapshots in one fleet tensor;
+* :mod:`repro_torch.query.state` — loading a reference deployment's state
+  (one device or a sharded fleet);
 * :mod:`repro_torch.query.telemetry` — the metrics registry and traces.
 """
 
@@ -58,7 +62,17 @@ from repro_torch.query.compile import (
 )
 from repro_torch.query.device import FlashDevice
 from repro_torch.query.scheduler import BatchScheduler, QueryResult
-from repro_torch.query.state import export_state, load_reference_state
+from repro_torch.query.shard import (
+    ShardedBitmapStore,
+    ShardedFlashQL,
+    build_sharded_flashql,
+)
+from repro_torch.query.state import (
+    export_fleet_state,
+    export_state,
+    load_reference_fleet,
+    load_reference_state,
+)
 from repro_torch.query.telemetry import (
     Histogram,
     Telemetry,
@@ -100,8 +114,13 @@ __all__ = [
     "FlashDevice",
     "BatchScheduler",
     "QueryResult",
+    "ShardedBitmapStore",
+    "ShardedFlashQL",
+    "build_sharded_flashql",
     "export_state",
     "load_reference_state",
+    "export_fleet_state",
+    "load_reference_fleet",
     "Histogram",
     "Telemetry",
     "percentile",

@@ -294,9 +294,27 @@ def plan_step_fn(signature: tuple[_Step, ...]):
 
 def make_plan_runner(signature: tuple[_Step, ...]):
     """Executor for one plan signature: ``run(data, *idxs)`` over one
-    ``(slots, words)`` snapshot shared by every batch element."""
+    ``(slots, words)`` source shared by every batch element.
+
+    A sharded fleet runs one signature group across every shard with the
+    same runner: ``data`` is then the fleet tensor viewed as one
+    ``(shards * cap, words)`` source and each batch element's slot indices
+    are shifted into its own shard's rows (:func:`offset_slots`) — no
+    snapshot is copied or stacked."""
     run_one = plan_step_fn(signature)
     return lambda data, *idxs: run_one(data, None, *idxs)
+
+
+def offset_slots(idx: np.ndarray, base: np.ndarray) -> np.ndarray:
+    """Shift an :func:`encode_idx` array ``(B, blocks, wordlines)`` into a
+    fleet source: every slot index of batch element ``b`` gains
+    ``base[b]`` (its shard's first row in the fleet); the negative
+    entries, which name substituted spill/shared rows, stay as they are."""
+    shift = np.asarray(base, dtype=np.int64).reshape(-1, 1, 1)
+    out = np.where(idx >= 0, idx + shift, idx)
+    if out.size and out.max() > np.iinfo(np.int32).max:
+        raise ValueError("fleet source has more rows than int32 indices reach")
+    return np.ascontiguousarray(out, dtype=np.int32)
 
 
 def make_flush_runner(key: tuple):
@@ -586,3 +604,13 @@ class FlashDevice(FlashArray):
         if not pieces:
             return torch.zeros((0, w or 0), dtype=torch.int32, device=self.device)
         return reorder_rows(pieces, order)
+
+    def execute_batch(
+        self,
+        plans: list[CommandPlan],
+        seed: int = 0,
+        execs: list[ExecPlan | None] | None = None,
+    ) -> list[torch.Tensor]:
+        """List-of-tensors variant of :meth:`execute_batch_stacked`."""
+        stacked = self.execute_batch_stacked(plans, seed=seed, execs=execs)
+        return [stacked[i] for i in range(len(plans))]

@@ -15,6 +15,11 @@ reference.  The state carried is:
   ``esp_programs`` and ``block_erases``;
 * the ``BitmapStore``'s logical pages (the tombstone page included),
   column metadata, epochs and ``deleted_rows``.
+
+:func:`export_fleet_state` and :func:`load_reference_fleet` do the same
+for a sharded fleet: every shard through the functions above, plus the
+fleet's striping (``row_maps``, ``schema``, ``shard_values``,
+``stripe_bounds``, ``reserve_rows``, ``num_rows``).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from repro_torch.core.reliability import CellMode, ProgramConfig
 from repro_torch.core.store import PackedStore
 from repro_torch.query.bitmap import BitmapStore, ColumnIndex
 from repro_torch.query.device import FlashDevice
+from repro_torch.query.shard import ShardedBitmapStore
 
 _PAGE = "logical:"
 
@@ -35,7 +41,9 @@ def export_state(store, device) -> tuple[dict[str, np.ndarray], dict]:
     programmed into (see the module docstring)."""
     ps, lay = device.store, device.layout
     placements, fill, next_block, scratch, by_loc, regions = lay.snapshot()
-    arrays = {"buf": np.array(ps._buf[: ps._n], dtype=np.uint32)}
+    # a fleet's never-ingested shard has a device with no pages yet
+    buf = np.zeros((0, 0), np.uint32) if ps._buf is None else ps._buf[: ps._n]
+    arrays = {"buf": np.array(buf, dtype=np.uint32)}
     for name, page in store.logical.items():
         arrays[_PAGE + name] = np.array(page, dtype=np.uint32)
     meta = {
@@ -110,8 +118,9 @@ def load_reference_state(
     pm = meta["packed"]
     packed = PackedStore(planes=pm["planes"])
     buf = np.array(arrays["buf"], dtype=np.uint32)
-    packed._buf = buf
-    packed._n = buf.shape[0]
+    if buf.shape[0]:
+        packed._buf = buf
+        packed._n = buf.shape[0]
     packed._words = pm["words"]
     packed._slots = dict(pm["slots"])
     packed.epoch = pm["epoch"]
@@ -149,3 +158,72 @@ def load_reference_state(
         deleted_rows=bm["deleted_rows"],
     )
     return store, dev
+
+
+def export_fleet_state(sstore, devices) -> tuple[dict[str, np.ndarray], dict]:
+    """``(arrays, meta)`` of a sharded bitmap store and its devices:
+    shard ``s``'s :func:`export_state` under the prefix ``shard{s}/``,
+    its row map as ``row_map{s}``, and the fleet's striping metadata."""
+    arrays: dict[str, np.ndarray] = {}
+    shards = []
+    for s, (st, dev) in enumerate(zip(sstore.shards, devices)):
+        a, m = export_state(st, dev)
+        arrays.update({f"shard{s}/{k}": v for k, v in a.items()})
+        shards.append(m)
+    for s, rmap in enumerate(sstore.row_maps):
+        arrays[f"row_map{s}"] = np.array(rmap, dtype=np.int64)
+    meta = {
+        "num_shards": sstore.num_shards,
+        "policy": sstore.policy,
+        "stripe_key": sstore.stripe_key,
+        "reserve_rows": sstore.reserve_rows,
+        "num_rows": sstore.num_rows,
+        "schema": {c: list(v) for c, v in sstore.schema.items()},
+        "shard_values": [
+            {c: list(v) for c, v in sv.items()} for sv in sstore.shard_values
+        ],
+        "stripe_bounds": [
+            None if b is None else list(b) for b in sstore.stripe_bounds
+        ],
+        "row_maps": len(sstore.row_maps),
+        "shards": shards,
+    }
+    return arrays, meta
+
+
+def load_reference_fleet(
+    arrays: dict[str, np.ndarray], meta: dict, device="cuda"
+) -> tuple[ShardedBitmapStore, list[FlashDevice]]:
+    """Rebuild a port ``ShardedBitmapStore`` and its devices (on
+    ``device``) from :func:`export_fleet_state` output; a
+    ``ShardedFlashQL`` over them answers as the exported fleet does."""
+    stores, devices = [], []
+    for s, m in enumerate(meta["shards"]):
+        prefix = f"shard{s}/"
+        st, dev = load_reference_state(
+            {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)},
+            m,
+            device=device,
+        )
+        stores.append(st)
+        devices.append(dev)
+    sstore = ShardedBitmapStore(
+        num_shards=meta["num_shards"],
+        policy=meta["policy"],
+        stripe_key=meta["stripe_key"],
+        reserve_rows=meta["reserve_rows"],
+        shards=stores,
+        row_maps=[
+            np.array(arrays[f"row_map{s}"], dtype=np.int64)
+            for s in range(meta["row_maps"])
+        ],
+        num_rows=meta["num_rows"],
+        schema={c: tuple(v) for c, v in meta["schema"].items()},
+        shard_values=[
+            {c: tuple(v) for c, v in sv.items()} for sv in meta["shard_values"]
+        ],
+        stripe_bounds=[
+            None if b is None else tuple(b) for b in meta["stripe_bounds"]
+        ],
+    )
+    return sstore, devices

@@ -228,6 +228,53 @@ def test_packed_store_layout_and_epochs():
         s["x"] = _words(rng, 11)
 
 
+def test_packed_store_plane_view_matches_reference():
+    """tests/test_query.py::test_packed_store_roundtrip_and_planes, both
+    packages: 10 words pad to 12 over 4 planes -> 3 words per plane, and
+    the plane view holds the same words as the reference's."""
+    from repro.core.store import PackedStore as RPackedStore
+
+    rng = np.random.default_rng(0)
+    got, want = PackedStore(planes=4), RPackedStore(planes=4)
+    for i in range(5):
+        w = _words(rng, 10)
+        got[f"p{i}"] = want[f"p{i}"] = w
+        np.testing.assert_array_equal(to_uint32(got[f"p{i}"]), w)
+    assert got.padded_words == 12 and got.words_per_plane == 3
+    pv = got.plane_view("cpu")
+    assert pv.shape == (4, got.num_slots, 3)
+    np.testing.assert_array_equal(to_uint32(pv), np.asarray(want.plane_view()))
+    assert to_uint32(got.snapshot("cpu"))[0].min() == 0xFFFFFFFF
+
+
+def test_bind_moves_the_snapshot_into_a_view():
+    """``bind`` makes a caller's tensor the device buffer: an unbound
+    store uploads into it (counted), a bound one copies on the device
+    (not counted), and later writes land in the view in place until a
+    slot outgrows it."""
+    rng = np.random.default_rng(2)
+    s = PackedStore(planes=2)
+    for i in range(3):
+        s[f"c={i}"] = _words(rng, 6)
+    slab = torch.zeros((2, s.capacity, 6), dtype=torch.int32)
+    assert s.bind(slab[0]) == s.num_slots * 6 * 4
+    assert s.snapshot_uploads == 1 and s.bound_to(slab[0]) is False  # a new view object
+    view = slab[1]
+    s.bind(view)  # on the device already: a device-to-device copy
+    assert s.snapshot_uploads == 1 and s.bound_to(view)
+    w = _words(rng, 6)
+    s["c=1"] = w
+    np.testing.assert_array_equal(to_uint32(slab[1, s.slot("c=1")]), w)
+    assert s.snapshot("cpu").data_ptr() == view.data_ptr()
+    rows = view.shape[0]
+    while s.num_slots <= rows:  # outgrow the view: a tensor of its own
+        s[f"d={s.num_slots}"] = _words(rng, 6)
+    assert not s.bound_to(view) and s.snapshot_uploads == 1
+    np.testing.assert_array_equal(to_uint32(s.snapshot("cpu")), s._buf[: s.num_slots])
+    with pytest.raises(ValueError):
+        s.bind(torch.zeros((2, 6), dtype=torch.int32))
+
+
 def test_device_defaults_to_cuda():
     if torch.cuda.is_available():
         assert te.FlashArray().device.type == "cuda"

@@ -46,6 +46,7 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.query.scheduler" in mods and "repro_torch.kernels.mws.ops" in mods
     assert "repro_torch.train.trainer" in mods and "repro_torch.kernels.signcomp.ops" in mods
     assert "repro_torch.kernels.mws_count.ops" in mods
+    assert "repro_torch.query.shard" in mods
     _import_in_subprocess(mods)
 
 
@@ -62,6 +63,11 @@ def test_importing_the_port_loads_no_jax():
 def test_the_training_stack_loads_no_jax(mod):
     """Each entry point of the training slice, imported on its own."""
     _import_in_subprocess([mod])
+
+
+def test_the_sharded_fleet_loads_no_jax():
+    """``repro_torch.query.shard``, imported on its own."""
+    _import_in_subprocess(["repro_torch.query.shard"])
 
 
 @pytest.mark.parametrize(

@@ -22,7 +22,13 @@ import pytest
 import torch
 
 from repro_torch.core.bitops import BitOp, to_uint32, to_words
-from repro_torch.kernels.mws import mws_gather, mws_gather_ref, mws_reduce, mws_reduce_ref
+from repro_torch.kernels.mws import (
+    mws_gather,
+    mws_gather_ref,
+    mws_reduce,
+    mws_reduce_ref,
+    parabit_reduce,
+)
 from repro_torch.kernels.mws.ops import _MAX_GRID_Y, choose_variant, staged_fits
 from repro_torch.kernels.popcount import popcount, popcount_ref
 from repro_torch.kernels.threshold import threshold_reduce, threshold_ref
@@ -42,6 +48,7 @@ def ref():
 
     from repro.core.bitops import BitOp, reduce_words
     from repro.kernels.mws import mws_reduce
+    from repro.kernels.mws.ops import parabit_reduce
     from repro.kernels.popcount.popcount import popcount_pallas
     from repro.kernels.threshold import bitslice_threshold, threshold_reduce
 
@@ -50,6 +57,7 @@ def ref():
         BitOp=BitOp,
         reduce_words=reduce_words,
         mws_reduce=mws_reduce,
+        parabit_reduce=parabit_reduce,
         popcount_pallas=popcount_pallas,
         bitslice_threshold=bitslice_threshold,
         threshold_reduce=threshold_reduce,
@@ -81,6 +89,20 @@ def test_mws_plain_matches_pallas(ref, op, n, w):
     got = to_uint32(mws_reduce(to_words(stack), op))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(to_uint32(mws_reduce_ref(to_words(stack), op)), want)
+
+
+@pytest.mark.parametrize("op", OPS, ids=lambda o: o.value)
+def test_parabit_matches_mws_and_the_reference(ref, op):
+    """tests/test_kernel_mws.py::test_parabit_matches_mws: the serial
+    ParaBit fold equals the one-pass MWS reduce, and the reference's
+    ParaBit baseline, on a (31, 777) stack."""
+    x = _words(np.random.default_rng(3), 31, 777)
+    got = parabit_reduce(to_words(x), op)
+    np.testing.assert_array_equal(to_uint32(got), to_uint32(mws_reduce(to_words(x), op)))
+    want = ref.parabit_reduce(ref.jnp.asarray(x), getattr(ref.BitOp, op.name))
+    np.testing.assert_array_equal(to_uint32(got), np.asarray(want))
+    with pytest.raises(ValueError):
+        parabit_reduce(to_words(x[:0]), op)
 
 
 def test_mws_gather_plain_matches_reference_cube(ref):

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import repro.query as R
 import repro_torch.query as T
@@ -139,6 +140,26 @@ def test_smoke_mutation_path_rehearsal():
     assert steps["coalesced_appends_4"]["snapshot_bytes_written"] == 0  # queued until the flush
 
 
+def test_smoke_shard_path_rehearsal():
+    """chip_smoke.py's sharded phase at 2^13 rows (fleet B at 2^12) on the
+    CPU: both fleets answer as numpy does, the host transfers per flush
+    are as the phase asserts, and the append and delete write into the
+    fleet tensor in place."""
+    smoke = _chip_smoke()
+    out = smoke.shard_path("cpu", 1 << 13, 1 << 12, log=lambda msg: None)
+    rec = out.pop("recorded")
+    assert rec.calls["mws_shard_lockstep"] and rec.calls["mws_shard_pipelined"]
+    modes = out["modes"]
+    assert modes["lockstep_count_mask"]["host_transfers_per_flush"] == 2  # COUNT + MASK
+    assert modes["pipelined_count_mask"]["host_transfers_per_flush"] == 4  # one per shard
+    assert modes["pipelined_count_mask"]["calls_checked"] == {"popcount": 4, "threshold": 4}
+    assert out["fleet"]["rebuilds"] == 1 and out["fleet"]["rebuilds_by_writes"] == 0
+    for step in ("append", "delete"):
+        assert out["mutations"][step]["snapshot_uploads"] == [1, 1, 1, 1]
+        assert out["mutations"][step]["snapshot_bytes_written"] > 0
+    assert out["routed"]["shards_pruned"] > 0
+
+
 def test_answers_match_numpy():
     table = _table(1)
     store, dev = _deploy(T, table, device="cpu")
@@ -175,8 +196,9 @@ def test_load_reference_state_serves_identically():
 
 
 def test_unported_surfaces_raise_naming_the_roadmap():
-    """The mutations (ROADMAP A4) are ported: they run and raise nothing;
-    the sharded fleet (A6) is still absent from the port's package."""
+    """The mutations (ROADMAP A4) and the sharded fleet (A6) are ported:
+    the live index runs and raises nothing, and the three sharded names
+    exist, a 2-shard CPU fleet answering a COUNT as the reference's does."""
     store, dev = _deploy(T, _table(), device="cpu")
     sched = T.BatchScheduler(dev, store)
     assert sched.append({"country": [1], "age": [20], "device": [0]}) > 0
@@ -184,8 +206,64 @@ def test_unported_surfaces_raise_naming_the_roadmap():
     assert sched.update([1], {"country": [2], "age": [30], "device": [1]}) > 0
     assert sched.compact()["rows_dropped"] == 2
     for name in ("ShardedBitmapStore", "ShardedFlashQL", "build_sharded_flashql"):
-        with pytest.raises(AttributeError):
-            getattr(T, name)
+        assert getattr(T, name) is getattr(T.shard, name)
+    table = _table(4)
+    if not torch.cuda.is_available():  # the card is the default: no silent CPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.build_sharded_flashql(table, 2)
+    counts = [
+        M.build_sharded_flashql(table, 2, **kw).serve(
+            [M.Query(M.Eq("country", 3) & M.Range("age", 18, 35))]
+        )[0].count
+        for M, kw in ((R, {}), (T, {"device": "cpu"}))
+    ]
+    assert counts[0] == counts[1] == int(
+        ((table["country"] == 3) & (table["age"] >= 18) & (table["age"] <= 35)).sum()
+    )
+
+
+def test_execute_batch_equals_sequential():
+    """tests/test_query.py::test_batched_execution_equals_sequential: the
+    batched path and FlashArray.execute agree, and equal the reference's
+    batched words."""
+    from repro_torch.core.bitops import to_uint32
+    from repro_torch.core.engine import FlashArray
+
+    table = _table(5)
+    words = {}
+    for M, kw in ((R, {}), (T, {"device": "cpu"})):
+        store, dev = _deploy(M, table, **kw)
+        plans = [M.QueryCompiler(store, dev).compile(M.Query(M.Eq("country", c))).plan for c in range(8)]
+        words[M] = [np.asarray(w if M is R else to_uint32(w)) for w in dev.execute_batch(plans)]
+    arr = FlashArray(device="cpu")
+    store = T.BitmapStore()
+    store.ingest(table)
+    store.program(arr)
+    comp = T.QueryCompiler(store, arr)
+    for c, got in enumerate(words[T]):
+        seq = arr.execute(comp.compile(T.Query(T.Eq("country", c))).plan)
+        np.testing.assert_array_equal(got, to_uint32(seq))
+        np.testing.assert_array_equal(got, words[R][c])
+
+
+def test_execute_batch_allows_unrelated_non_esp_pages():
+    """tests/test_query.py::test_batch_allows_unrelated_non_esp_pages: a
+    noisy page the batch never senses leaves batching on; sensing it from
+    the batch path raises."""
+    from repro_torch.core.expr import Page
+    from repro_torch.core.planner import Planner
+
+    rng = np.random.default_rng(14)
+    store = T.BitmapStore()
+    store.ingest({"c": rng.integers(0, 4, 200)})
+    dev = T.FlashDevice(num_planes=1, device="cpu")
+    store.program(dev)
+    dev.fc_write("telemetry", rng.integers(0, 2**32, (store.words,), dtype=np.uint32), esp=False)
+    plan = T.QueryCompiler(store, dev).compile(T.Query(T.Eq("c", 1))).plan
+    (out,) = dev.execute_batch([plan])
+    assert out.shape == (store.words,)
+    with pytest.raises(ValueError, match="non-ESP"):
+        dev.execute_batch([Planner(dev.layout).compile(Page("telemetry"))])
 
 
 def test_noisy_page_takes_the_legacy_path():
