@@ -33,7 +33,16 @@ drives the port's three paths on the card:
 
 then votes packed planes of the largest gradient leaf's layout with the
 majority kernel, shows that each path launched its kernels, and prints
-each kernel's time, its plain version's time and its bound.
+each kernel's time, its plain version's time and its bound;
+
+4. LM serving through ``launch/serve.py::serve`` at published widths and
+   depths, bf16, random weights from the seed: granite-8b (batch 8 x 512
+   prompt tokens, and batch 1 x 8192 under blockwise attention),
+   internvl2-26b (256 patch embeddings + 128 tokens) and
+   deepseek-v2-lite-16b (MoE + MLA), every prefill and the first decode
+   steps held against the port's full forward, every logit finite, and
+   each family's reduced f32 config served on the card equal to the CPU;
+   it launches none of the kernels above (``serve_path``).
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero.  Without a CUDA device, or outside a checkout, it exits 2
 and prints no result.
@@ -41,6 +50,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -1984,6 +1994,280 @@ def majority_phase(n: int, card: str) -> dict:
     return row
 
 
+# -- phase 9: LM serving ----------------------------------------------------------
+
+# (arch, batch, prompt tokens, new tokens, config overrides, why)
+SERVE_RUNS = (
+    ("granite-8b", 8, 512, 64, {}, "dense; serve.py's default arch, its default naive attention"),
+    ("granite-8b", 1, 8192, 16, {"attention_impl": "auto"},
+     "blockwise prefill, and blockwise decode at a large offset"),
+    ("internvl2-26b", 2, 128, 32, {}, "VLM: 256 patch embeddings + 128 tokens"),
+    ("deepseek-v2-lite-16b", 8, 512, 64, {}, "MoE + MLA at the published capacity 1.25"),
+)
+SERVE_CHECK_STEPS = 4  # decode steps held against the full forward
+# The cached path and the full forward round bf16 (8 significant bits) at
+# different points: other matmul shapes and attention over the cache's
+# empty slots.  That moves dense logits by a few hundredths of their
+# spread; a wrong position, cache slot or mask decorrelates them (RMS
+# ratio near 1-1.4).
+SERVE_BF16_TOL = 0.1  # per batch row: RMS(cached - forward) / std(forward)
+# In bf16 an MoE's top-k router re-routes the compared token in several
+# layers (tools/serve_route_flips.py counts them), so the MoE's cached path
+# is held against its forward in f32 at full width and depth, to the
+# reference's own f32 decode-vs-forward tolerance (tests/test_arch_smoke.py:57);
+# its bf16 ratios are reported beside.
+SERVE_F32_RATIO_TOL = 3e-3
+SERVE_F32_TOL = 1e-4  # card vs CPU, f32 reduced configs (d), elementwise
+def _kernel_wrappers() -> dict:
+    """Every B1-B7 wrapper, each of which counts its launches."""
+    from repro_torch.kernels.mws import mws_gather
+    from repro_torch.kernels.mws_count import mws_count
+    from repro_torch.kernels.popcount import popcount
+    from repro_torch.kernels.signcomp import compress_signs, decompress_signs, majority_vote
+    from repro_torch.kernels.threshold import threshold_reduce
+
+    fns = (mws_gather, popcount, threshold_reduce, mws_count, compress_signs, decompress_signs,
+           majority_vote)
+    return {fn.__name__: fn for fn in fns}
+
+
+def _serve_inputs(cfg, batch: int, prompt: int, seed: int, device):
+    """Prompts and the VLM's patch embeddings from ``seed``, as
+    ``launch/serve.py`` draws them."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))).to(device)
+    extra = {}
+    if cfg.family == "vlm":
+        patches = rng.normal(size=(batch, cfg.num_patch_tokens, cfg.d_model))
+        extra["patch_embeds"] = torch.from_numpy(patches).to(device, cfg.cdtype)
+    return prompts, extra
+
+
+def serve_check_config(cfg):
+    """The config whose cached path ``serve_path`` holds against its full
+    forward: ``cfg`` itself, or for an MoE that config in f32 at a no-drop
+    capacity (E / top_k, so a forward over more tokens keeps every
+    assignment the cached steps kept)."""
+    if cfg.moe is None:
+        return cfg
+    no_drop = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+    return cfg.with_(moe=no_drop, param_dtype="float32", compute_dtype="float32")
+
+
+def check_cached_path(cfg, params, prompts, extra, device) -> list[float]:
+    """Serve SERVE_CHECK_STEPS + 1 tokens; for the prefill and each decode
+    step, the worst batch row's RMS(step logits - forward logits) /
+    std(forward logits), the forward running over the prompt plus the
+    tokens generated so far."""
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import get_model
+
+    kept = {}
+    ids = serve(cfg, params, prompts, SERVE_CHECK_STEPS + 1, extra, device,
+                on_step=lambda i, lg: kept.__setitem__(i, lg[:, -1].clone()))
+    ratios = []
+    with torch.inference_mode():
+        for i in range(SERVE_CHECK_STEPS + 1):
+            seq = torch.cat([prompts, ids[:, :i]], dim=1)
+            want = get_model(cfg).forward(cfg, params, seq, **extra)[:, -1].float()
+            rms = (kept[i].float() - want).pow(2).mean(dim=-1).sqrt()
+            ratios.append(float((rms / want.std(dim=-1)).max()))
+            del want
+    return ratios
+
+
+def _free(device) -> None:
+    import torch
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_path(device, cfg, batch: int, prompt: int, tokens: int, seed: int = SEED,
+               card: str | None = None, log=log) -> dict:
+    """Serve ``cfg`` at random weights from ``seed`` through
+    ``launch/serve.py::serve``: first the check of the cached path against
+    the full forward (``serve_check_config``; an MoE's in f32 on its own
+    parameters, freed before the served ones are built), then the timed
+    run at ``cfg`` itself (every logit finite), then one profiled decode
+    step and the unembedding's f32 copy."""
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.state import flatten
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    on_card = torch.device(device).type == "cuda"
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    model = get_model(cfg)
+    check_cfg = serve_check_config(cfg)
+    same = check_cfg.param_dtype == cfg.param_dtype
+    if not same:
+        params = model.init_params(check_cfg, seed, device)
+        ratios = check_cached_path(check_cfg, params, *_serve_inputs(check_cfg, batch, prompt, seed, device), device)
+        del params
+        _free(device)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed, device)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak_init = torch.cuda.max_memory_allocated() if on_card else None
+    n_params = sum(p.numel() for p in flatten(params).values())
+    weight_bytes = sum(p.numel() * p.element_size() for p in flatten(params).values())
+    prompts, extra = _serve_inputs(cfg, batch, prompt, seed, device)
+    n_ctx = prompt + (cfg.num_patch_tokens if extra else 0)
+    if same:
+        ratios = check_cached_path(check_cfg, params, prompts, extra, device)
+        reported = None
+    else:  # the served dtype's ratios, beside the gated f32 ones
+        reported = check_cached_path(serve_check_config(cfg).with_(
+            param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype), params, prompts, extra, device)
+    tol = SERVE_BF16_TOL if check_cfg.cdtype == torch.bfloat16 else SERVE_F32_RATIO_TOL
+    if not max(ratios) <= tol:
+        raise AssertionError(f"{cfg.name}: cached logits vs forward {ratios} > {tol}")
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    marks = []
+    finite = torch.ones((), dtype=torch.bool, device=device)
+
+    def on_step(i, logits):
+        finite.logical_and_(torch.isfinite(logits).all())
+        if on_card:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    t1 = time.perf_counter()
+    ids = serve(cfg, params, prompts, tokens, extra, device, on_step).cpu()
+    peak_serve = torch.cuda.max_memory_allocated() if on_card else None
+    if not bool(finite):
+        raise AssertionError(f"{cfg.name}: a served logit is not finite")
+    if ids.shape != (batch, tokens) or not (0 <= int(ids.min()) and int(ids.max()) < cfg.vocab):
+        raise AssertionError(f"{cfg.name}: served ids {tuple(ids.shape)} out of range")
+    steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    p50 = statistics.median(steps_ms)
+    launched = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    if launched:
+        raise AssertionError(f"the serving path launched B1-B7 kernels: {launched}")
+
+    # the bound of a decode step at the timed steps' middle offset: every
+    # weight read once (the MoE's dense einsum reads every expert), the
+    # cache's filled slots read once, the logits written once
+    cache = model.init_kv_cache(cfg, 1, 1, device="meta")
+    slot_bytes = sum(c.element_size() * c[:, 0, 0].numel() for c in cache.values())
+    mid = n_ctx + tokens // 2
+    bound_bytes = weight_bytes + slot_bytes * batch * mid + 4 * batch * cfg.vocab
+    out = {
+        "arch": cfg.name,
+        "layers": cfg.n_layers,
+        "params": n_params,
+        "batch": batch,
+        "prompt": prompt,
+        "context": n_ctx,
+        "tokens_generated": batch * tokens,
+        "attention_impl": cfg.attention_impl,
+        "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
+        "init_s": init_s,
+        "prefill_ms": (marks[0] - t1) * 1e3,
+        "decode_p50_ms": p50,
+        "decode_steps_ms": steps_ms,
+        "decode_tokens_per_s": batch * (tokens - 1) / (marks[-1] - marks[0]),
+        "peak_init_bytes": peak_init,
+        "peak_serve_bytes": peak_serve,
+        "decode_bound_bytes": bound_bytes,
+        "sample": ids[0, :8].tolist(),
+        "check": {
+            "decode_vs_forward": ratios,
+            "worst": max(ratios),
+            "tol": tol,
+            "dtype": check_cfg.compute_dtype,
+            "metric": "per batch row RMS(cached - forward) / std(forward), worst row",
+            "capacity_factor": check_cfg.moe.capacity_factor if cfg.moe else None,
+            "why": "bf16 rounds at other points on the two paths; a wrong slot, position or "
+                   "mask gives ~1; an MoE is held in f32, its bf16 router re-routes near ties",
+            **({"served_dtype_ratios_not_gated": reported} if reported else {}),
+        },
+    }
+    if on_card:
+        bw = hbm_rate(torch.cuda.get_device_name(0))
+        out["decode_bound_ms"] = bound_bytes / bw * 1e3
+        out["decode_ms_over_bound"] = p50 / out["decode_bound_ms"]
+        out["decode_ops_bound_ms"] = 2 * n_params * batch / 989e12 * 1e3  # bf16 dense peak
+        # one decode step under the profiler, from a fresh prefill, warm
+        prefill = make_prefill_step(cfg, max_len=n_ctx + 3)
+        decode = make_decode_step(cfg)
+        with torch.inference_mode():
+            logits, cache = prefill(params, {"inputs": {"tokens": prompts, **extra}})
+            nxt = torch.argmax(logits[:, -1:], dim=-1)
+            decode(params, cache, nxt, n_ctx)
+            wall_ms, dev = device_profile(lambda: decode(params, cache, nxt, n_ctx + 1))
+        del cache, logits
+        busy = sum(ms for ms, _, _ in dev)
+        out["profile"] = {
+            "wall_ms": wall_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms if dev else "not measured",
+            "kernel_launches": sum(n for _, n, _ in dev),
+            "top": [[key[:90], n, ms] for ms, n, key in dev[:8]],
+        }
+        out["device_idle_share"] = out["profile"]["device_idle_share"]
+        emb = params["embed"]["embedding"]
+        out["unembed_f32_copy_ms"] = time_ms(lambda: emb.float(), 10)
+        out["unembed_f32_copy_bytes"] = emb.numel() * (emb.element_size() + 4)
+        if card:
+            out["card"] = card
+    log(json.dumps({"serve_path": out}))
+    del params, ids
+    _free(device)
+    return out
+
+
+def serve_card_vs_cpu(archs=("granite-8b", "internvl2-26b", "deepseek-v2-lite-16b")) -> dict:
+    """(d): each family's reduced config in f32, the same parameters and
+    prompts served on the card and on the CPU: every step's logits within
+    SERVE_F32_TOL and the greedy ids equal.  f32 matmuls run in full f32
+    on the card (TF32 off, torch's default), which is asserted."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.state import params_from_reference, params_to_reference
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 matmuls on the card would run in TF32")
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch).reduced()
+        host = params_to_reference(get_model(cfg).init_params(cfg, SEED, "cpu"))
+        runs = {}
+        for device in ("cpu", "cuda"):
+            prompts, extra = _serve_inputs(cfg, 2, 16, SEED, device)
+            logs = []
+            ids = serve(cfg, params_from_reference(host, device=device), prompts, 8, extra, device,
+                        on_step=lambda i, lg, logs=logs: logs.append(lg.cpu()))
+            runs[device] = (ids.cpu(), torch.stack(logs))
+        err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
+        if not torch.allclose(runs["cuda"][1], runs["cpu"][1], rtol=SERVE_F32_TOL, atol=SERVE_F32_TOL):
+            raise AssertionError(f"{arch} reduced: card logits differ from the CPU's by {err}")
+        if not torch.equal(runs["cuda"][0], runs["cpu"][0]):
+            raise AssertionError(f"{arch} reduced: card ids {runs['cuda'][0]} != CPU {runs['cpu'][0]}")
+        out[arch] = {"max_abs_err": err, "ids_equal": True}
+    return out
+
+
 def _card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2117,6 +2401,18 @@ def main() -> int:
             f"{r['launches']} launches"
         )
     report += sign_rows
+    del train, sign_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving runs last: each model is built, served and freed before the
+    # next (internvl2-26b's init peaks near 58 GB)
+    t0 = time.perf_counter()
+    log(json.dumps({"serve_card_vs_cpu": serve_card_vs_cpu(), "tol": SERVE_F32_TOL, "card": card_line}))
+    for arch, batch, prompt, tokens, overrides, why in SERVE_RUNS:
+        log(f"serve {arch}: batch {batch}, prompt {prompt}, {tokens} new tokens, {overrides} ({why})")
+        serve_path("cuda", get_config(arch).with_(**overrides), batch, prompt, tokens, card=card_line)
+    log(f"serving path: {time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": report}))

@@ -11,7 +11,9 @@ online-softmax paths) to mirror the reference, not a fused library call.
 
 from __future__ import annotations
 
+import functools
 import math
+import operator
 
 import numpy as np
 import torch
@@ -86,10 +88,18 @@ def rope_frequencies(head_dim: int, theta: float = 10_000.0) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_inv(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The reference's frequencies on ``device``, copied there once: a copy
+    from pageable host memory per call would stall the host on the card
+    at every layer of every decode step.  Never written to."""
+    return torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
+
+
 def apply_rope(x, positions, theta=10_000.0):
     """x: (B, S, H, hd); positions: (B, S) integer."""
     hd = x.shape[-1]
-    inv = torch.from_numpy(rope_frequencies(hd, theta)).to(x.device)  # (hd/2,)
+    inv = _rope_inv(hd, float(theta), x.device)  # (hd/2,)
     ang = positions[..., None].float() * inv  # (B, S, hd/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., : hd // 2], x[..., hd // 2 :]
@@ -98,7 +108,7 @@ def apply_rope(x, positions, theta=10_000.0):
 
 
 # ---------------------------------------------------------------------------
-# GQA attention (causal, optional sliding window; training forward)
+# GQA attention (full / causal / sliding-window; train + cached decode)
 # ---------------------------------------------------------------------------
 
 
@@ -132,10 +142,11 @@ def init_attention(
     return p
 
 
-def _mask_bias(S, window, device):
-    """Causal (+ optional sliding-window) additive f32 mask bias."""
-    q_pos = torch.arange(S, device=device)[:, None]
-    kv_pos = torch.arange(S, device=device)[None, :]
+def _mask_bias(q_len, kv_len, offset, window, device):
+    """Causal (+ optional sliding-window) additive f32 mask bias; query
+    ``i`` sits at absolute position ``offset + i``."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
     ok = kv_pos <= q_pos
     if window is not None:
         ok &= kv_pos > q_pos - window
@@ -143,14 +154,35 @@ def _mask_bias(S, window, device):
     return torch.where(ok, zero, torch.finfo(torch.float32).min)
 
 
+def host_offset(offset) -> int:
+    """A cache offset as a host int.  A tensor is refused: reading a CUDA
+    one would make the host wait for the card on every decode step."""
+    if isinstance(offset, torch.Tensor):
+        raise TypeError("a cache offset is a host int, not a tensor")
+    return operator.index(offset)
+
+
+def write_cache(cache: torch.Tensor, new: torch.Tensor, offset: int) -> torch.Tensor:
+    """Write ``new`` (B, S, ...) into ``cache`` (B, S_max, ...) at slot
+    ``offset``, in place (ROADMAP C11), and return ``cache``.  The
+    reference's ``dynamic_update_slice`` clamps a start past
+    ``S_max - S`` and overwrites the last slots; this raises (C12)."""
+    S, S_max = new.shape[1], cache.shape[1]
+    if not 0 <= offset <= S_max - S:
+        raise ValueError(f"cache write of {S} slots at offset {offset} outside a cache of {S_max}")
+    cache[:, offset : offset + S] = new.to(cache.dtype)
+    return cache
+
+
 BLOCKWISE_KV_BLOCK = 1024
 BLOCKWISE_MIN_KV = 4096  # use the online-softmax path above this kv length
 
 
-def _blockwise_attention(qg, k, v, *, window, scale):
+def _blockwise_attention(qg, k, v, *, offset, window, causal, scale):
     """Online softmax over KV blocks, never materializing the (Sq, Skv)
-    scores.  qg: (B, Sq, n_kv, group, hd); k/v: (B, Skv, n_kv, hd).
-    Accumulates in f32; the loop over blocks is the reference's scan."""
+    scores.  qg: (B, Sq, n_kv, group, hd); k/v: (B, Skv, n_kv, hd); query
+    ``i`` sits at absolute position ``offset + i``.  Accumulates in f32;
+    the loop over blocks is the reference's scan."""
     B, Sq, NKV, G, hd = qg.shape
     Skv = k.shape[1]
     blk = min(BLOCKWISE_KV_BLOCK, Skv)
@@ -162,7 +194,7 @@ def _blockwise_attention(qg, k, v, *, window, scale):
     dev = qg.device
 
     q32 = qg.float() * scale
-    q_pos = torch.arange(Sq, device=dev)
+    q_pos = torch.arange(Sq, device=dev) + offset
     m = torch.full((B, NKV, G, Sq), -math.inf, dtype=torch.float32, device=dev)
     l = torch.zeros((B, NKV, G, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, NKV, G, Sq, hd), dtype=torch.float32, device=dev)
@@ -172,7 +204,9 @@ def _blockwise_attention(qg, k, v, *, window, scale):
         vblk = v[:, start : start + blk].float()
         s = torch.einsum("bsngh,btnh->bngst", q32, kblk)  # (B, NKV, G, Sq, blk)
         kv_pos = start + torch.arange(blk, device=dev)
-        ok = kv_pos[None, :] <= q_pos[:, None]  # causal
+        ok = torch.ones((Sq, blk), dtype=torch.bool, device=dev)
+        if causal:
+            ok &= kv_pos[None, :] <= q_pos[:, None]
         if window is not None:
             ok &= kv_pos[None, :] > q_pos[:, None] - window
         s = s.masked_fill(~ok, -math.inf)
@@ -194,41 +228,73 @@ def attention_fwd(
     *,
     n_heads,
     n_kv_heads,
+    positions=None,
     rope_theta=10_000.0,
     use_rope=True,
     window=None,
+    causal=True,
+    kv_cache=None,  # (k, v) each (B, S_max, n_kv, hd), written in place
+    cache_offset=None,  # host int: the slot of x's first position
+    kv_x=None,  # cross-attention source (enc-dec)
     impl="auto",  # "naive" | "blockwise" | "auto"
 ):
-    """Causal self-attention over ``x`` (B, S, D) -> (B, S, D).  The KV
-    cache and cross-attention of the reference wait for the serving
-    slice (ROADMAP A8b)."""
+    """Attention over ``x`` (B, S, D) -> (B, S, D).
+
+    With ``kv_cache`` this step's K/V are written into the cache at
+    ``cache_offset`` in place (ROADMAP C11) and the queries attend over
+    the whole cache, as the reference's do; the reference returns the
+    updated cache beside the output, here the caller already holds it.
+    With ``kv_x``, K/V are projected from ``kv_x`` and k gets no RoPE.
+    """
     B, S, D = x.shape
     hd = p["wq"].shape[-1] // n_heads
     cdt = x.dtype
 
-    def proj(w, b, nh):
-        y = torch.einsum("bsd,dh->bsh", x, w.to(cdt))
+    def proj(w, b, src, nh):
+        y = torch.einsum("bsd,dh->bsh", src, w.to(cdt))
         if b is not None:
             y = y + b.to(cdt)
-        return y.reshape(B, S, nh, hd)
+        return y.reshape(src.shape[0], src.shape[1], nh, hd)
 
-    q = proj(p["wq"], p.get("bq"), n_heads)
-    k = proj(p["wk"], p.get("bk"), n_kv_heads)
-    v = proj(p["wv"], p.get("bv"), n_kv_heads)
+    src_kv = x if kv_x is None else kv_x
+    q = proj(p["wq"], p.get("bq"), x, n_heads)
+    k = proj(p["wk"], p.get("bk"), src_kv, n_kv_heads)
+    v = proj(p["wv"], p.get("bv"), src_kv, n_kv_heads)
 
+    start = 0 if cache_offset is None else host_offset(cache_offset)
+    offset = start if kv_cache is not None else 0  # the mask's query offset
+    if positions is None:
+        positions = (torch.arange(S, device=x.device) + start)[None, :].expand(B, S)
     if use_rope:
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        if kv_x is None:
+            k = apply_rope(k, positions, rope_theta)
+
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        k = write_cache(ck, k, offset).to(cdt)
+        v = write_cache(cv, v, offset).to(cdt)
 
     group = n_heads // n_kv_heads
+    kv_len = k.shape[1]
     qg = q.reshape(B, S, n_kv_heads, group, hd)
-    use_blockwise = impl == "blockwise" or (impl == "auto" and S >= BLOCKWISE_MIN_KV)
+    is_causal = causal or kv_cache is not None
+    use_blockwise = impl == "blockwise" or (impl == "auto" and kv_len >= BLOCKWISE_MIN_KV)
     if use_blockwise:
-        out = _blockwise_attention(qg, k, v, window=window, scale=1.0 / math.sqrt(hd)).to(cdt)
+        out = _blockwise_attention(
+            qg,
+            k,
+            v,
+            offset=offset,
+            window=window,
+            causal=is_causal,
+            scale=1.0 / math.sqrt(hd),
+        ).to(cdt)
     else:
         logits = torch.einsum("bsngh,btnh->bngst", qg, k) / math.sqrt(hd)
-        logits = logits.float() + _mask_bias(S, window, x.device)[None, None, None]
+        logits = logits.float()
+        if is_causal:
+            logits = logits + _mask_bias(S, kv_len, offset, window, x.device)
         attn = torch.softmax(logits, dim=-1).to(cdt)
         out = torch.einsum("bngst,btnh->bsngh", attn, v).reshape(B, S, -1)
     out = torch.einsum("bsh,hd->bsd", out, p["wo"].to(cdt))

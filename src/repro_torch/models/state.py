@@ -43,6 +43,15 @@ def unflatten_into(skeleton: Any, flat: dict[str, Any], prefix: str = "") -> Any
     return flat[prefix[: -len(SEP)]]
 
 
+def unstack(stacked) -> list:
+    """One tree of layer-``i`` views per layer, from a tree of stacked
+    ``(L, ...)`` leaves (the reference's ``lax.scan`` layout)."""
+    flat = flatten(stacked)
+    slices = {k: v.unbind(0) for k, v in flat.items()}
+    n = len(next(iter(slices.values())))
+    return [unflatten_into(stacked, {k: s[i] for k, s in slices.items()}) for i in range(n)]
+
+
 def _to_torch(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes: widen exactly, narrow back

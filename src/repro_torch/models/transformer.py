@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer (starcoder2 / yi / granite / command-r).
+"""Dense decoder-only transformer (starcoder2 / yi / granite / command-r),
+and the VLM backbone (internvl2: patch embeddings prepended).
 
 Parameters mirror the reference's pytree leaf for leaf: every per-layer
 weight is ONE stacked ``(L, ...)`` tensor (the reference's ``lax.scan``
@@ -8,6 +9,11 @@ once, so autograd stacks the per-layer gradients back into one
 ``torch.utils.checkpoint`` (non-reentrant), which keeps only the layer's
 input, as the reference's ``nothing_saveable`` policy does.  The
 reference's sharding constraints have no counterpart on one device.
+
+Serving keeps the reference's ``{"k", "v"}`` cache of shape
+``(L, B, max_len, n_kv, hd)``, but writes each step's K/V into it in
+place and hands back the same dict (ROADMAP C11): a cache passed to
+``decode_step`` is not the cache it was before.  Offsets are host ints.
 """
 
 from __future__ import annotations
@@ -29,9 +35,7 @@ from repro_torch.models.layers import (
     rmsnorm_fwd,
     unembed_fwd,
 )
-from repro_torch.models.state import flatten, unflatten_into
-
-_SERVING = "LM serving (prefill/decode) is not ported yet: ROADMAP A8b"
+from repro_torch.models.state import unstack
 
 
 def _init_norm(cfg, d, dtype, device, leading=()):
@@ -43,7 +47,7 @@ def _norm_fwd(cfg, p, x):
     return rmsnorm_fwd(p, x) if cfg.norm == "rmsnorm" else layernorm_fwd(p, x)
 
 
-def layer_fwd(cfg: ArchConfig, lp, x):
+def layer_fwd(cfg: ArchConfig, lp, x, *, kv_cache=None, cache_offset=None, window=None):
     h = _norm_fwd(cfg, lp["norm1"], x)
     x = x + attention_fwd(
         lp["attn"],
@@ -52,6 +56,9 @@ def layer_fwd(cfg: ArchConfig, lp, x):
         n_kv_heads=cfg.n_kv_heads,
         rope_theta=cfg.rope_theta,
         use_rope=cfg.use_rope,
+        window=window,
+        kv_cache=kv_cache,
+        cache_offset=cache_offset,
         impl=cfg.attention_impl,
     )
     h = _norm_fwd(cfg, lp["norm2"], x)
@@ -97,34 +104,69 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     }
 
 
-def _unstack(stacked) -> list:
-    """One dict of layer-``i`` views per layer, from the stacked leaves."""
-    flat = flatten(stacked)
-    slices = {k: v.unbind(0) for k, v in flat.items()}
-    n = len(next(iter(slices.values())))
-    return [unflatten_into(stacked, {k: s[i] for k, s in slices.items()}) for i in range(n)]
-
-
-def forward(cfg: ArchConfig, params, tokens):
-    """Training forward: tokens (B, S) -> logits (B, S, vocab) in f32.
-    (The VLM backbone's patch embeddings wait for ROADMAP A8c.)"""
+def _embed(cfg, params, tokens, patch_embeds):
     x = embed_fwd(params["embed"], tokens, cfg.cdtype)
-    for lp in _unstack(params["layers"]):
+    if patch_embeds is None:
+        return x
+    return torch.cat([patch_embeds.to(cfg.cdtype), x], dim=1)
+
+
+def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
+    """Training forward: tokens (B, S) -> logits (B, S, vocab) in f32.
+
+    ``patch_embeds`` (the VLM's stub frontend): (B, N_patch, d) embeddings
+    prepended to the token embeddings; logits only for the token
+    positions (the patch positions are dropped before the unembedding,
+    which is per position)."""
+    x = _embed(cfg, params, tokens, patch_embeds)
+    for lp in unstack(params["layers"]):
         if cfg.remat:
             x = checkpoint(layer_fwd, cfg, lp, x, use_reentrant=False)
         else:
             x = layer_fwd(cfg, lp, x)
+    x = x[:, x.shape[1] - tokens.shape[1] :]
     x = _norm_fwd(cfg, params["final_norm"], x)
     return unembed_fwd(params["embed"], x)
 
 
-def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int):
-    raise NotImplementedError(_SERVING)
+# ---------------------------------------------------------------------------
+# Serving: KV cache init / prefill / decode
+# ---------------------------------------------------------------------------
 
 
+def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+    }
+
+
+def _cached_layers(cfg, params, x, cache, offset):
+    for i, lp in enumerate(unstack(params["layers"])):
+        kv = (cache["k"][i], cache["v"][i])
+        x = layer_fwd(cfg, lp, x, kv_cache=kv, cache_offset=offset)
+    return x
+
+
+@torch.no_grad()
 def decode_step(cfg: ArchConfig, params, cache, tokens, offset):
-    raise NotImplementedError(_SERVING)
+    """One decode step: tokens (B, 1) at absolute cache slot ``offset`` (a
+    host int) -> (logits (B, 1, vocab), cache written in place)."""
+    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    x = _cached_layers(cfg, params, x, cache, offset)
+    x = _norm_fwd(cfg, params["final_norm"], x)
+    return unembed_fwd(params["embed"], x), cache
 
 
+@torch.no_grad()
 def prefill(cfg: ArchConfig, params, tokens, max_len, patch_embeds=None):
-    raise NotImplementedError(_SERVING)
+    """Run the whole prompt, filling a new cache; returns the logits of the
+    last position and the cache.  VLM: the patch embeddings occupy the
+    first ``num_patch_tokens`` cache slots, so decode offsets are absolute
+    cache positions (n_patch + tokens seen)."""
+    cache = init_kv_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    x = _embed(cfg, params, tokens, patch_embeds)
+    x = _cached_layers(cfg, params, x, cache, 0)
+    x = _norm_fwd(cfg, params["final_norm"], x[:, -1:, :])
+    return unembed_fwd(params["embed"], x), cache

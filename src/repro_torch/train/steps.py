@@ -1,4 +1,4 @@
-"""Loss and train-step factories, generic over architecture."""
+"""Train / prefill / decode step factories, generic over architecture."""
 
 from __future__ import annotations
 
@@ -62,3 +62,23 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig) -> Callable:
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig, max_len: int) -> Callable:
+    model = get_model(cfg)
+
+    def prefill_step(params, batch):
+        return model.prefill(cfg, params, max_len=max_len, **batch["inputs"])
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig) -> Callable:
+    """``decode_step(params, cache, tokens, offset)``; ``offset`` is a host
+    int and the cache is written in place (ROADMAP C11)."""
+    model = get_model(cfg)
+
+    def decode_step(params, cache, tokens, offset):
+        return model.decode_step(cfg, params, cache, tokens, offset)
+
+    return decode_step

@@ -47,6 +47,7 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.train.trainer" in mods and "repro_torch.kernels.signcomp.ops" in mods
     assert "repro_torch.kernels.mws_count.ops" in mods
     assert "repro_torch.query.shard" in mods
+    assert "repro_torch.models.moe" in mods and "repro_torch.launch.serve" in mods
     _import_in_subprocess(mods)
 
 
@@ -58,10 +59,12 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.configs",
         "repro_torch.data",
         "repro_torch.launch.train",
+        "repro_torch.launch.serve",
     ],
 )
 def test_the_training_stack_loads_no_jax(mod):
-    """Each entry point of the training slice, imported on its own."""
+    """Each entry point of the training and serving slices, imported on
+    its own."""
     _import_in_subprocess([mod])
 
 
