@@ -38,11 +38,14 @@ each kernel's time, its plain version's time and its bound;
 4. LM serving through ``launch/serve.py::serve`` at published widths and
    depths, bf16, random weights from the seed: granite-8b (batch 8 x 512
    prompt tokens, and batch 1 x 8192 under blockwise attention),
-   internvl2-26b (256 patch embeddings + 128 tokens) and
-   deepseek-v2-lite-16b (MoE + MLA), every prefill and the first decode
-   steps held against the port's full forward, every logit finite, and
-   each family's reduced f32 config served on the card equal to the CPU;
-   it launches none of the kernels above (``serve_path``).
+   internvl2-26b (256 patch embeddings + 128 tokens),
+   deepseek-v2-lite-16b (MoE + MLA), xlstm-350m (batch 8 x 500),
+   recurrentgemma-2b (batch 8 x 512, and batch 1 x 8192 under blockwise
+   attention) and whisper-medium (1500 encoder frames + 128 tokens),
+   every prefill and the first decode steps held against the port's
+   full forward, every logit finite, and each family's reduced f32
+   config served on the card equal to the CPU; it launches none of the
+   kernels above (``serve_path``).
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero.  Without a CUDA device, or outside a checkout, it exits 2
 and prints no result.
@@ -1996,13 +1999,21 @@ def majority_phase(n: int, card: str) -> dict:
 
 # -- phase 9: LM serving ----------------------------------------------------------
 
-# (arch, batch, prompt tokens, new tokens, config overrides, why)
+# (arch, batch, prompt tokens, new tokens, encoder frames, config overrides, why)
 SERVE_RUNS = (
-    ("granite-8b", 8, 512, 64, {}, "dense; serve.py's default arch, its default naive attention"),
-    ("granite-8b", 1, 8192, 16, {"attention_impl": "auto"},
+    ("granite-8b", 8, 512, 64, 0, {}, "dense; serve.py's default arch, its default naive attention"),
+    ("granite-8b", 1, 8192, 16, 0, {"attention_impl": "auto"},
      "blockwise prefill, and blockwise decode at a large offset"),
-    ("internvl2-26b", 2, 128, 32, {}, "VLM: 256 patch embeddings + 128 tokens"),
-    ("deepseek-v2-lite-16b", 8, 512, 64, {}, "MoE + MLA at the published capacity 1.25"),
+    ("internvl2-26b", 2, 128, 32, 0, {}, "VLM: 256 patch embeddings + 128 tokens"),
+    ("deepseek-v2-lite-16b", 8, 512, 64, 0, {}, "MoE + MLA at the published capacity 1.25"),
+    ("xlstm-350m", 8, 500, 64, 0, {},
+     "3 chunks of 128 plus a 116-token ragged tail step by step; O(1) recurrent decode"),
+    ("recurrentgemma-2b", 8, 512, 64, 0, {},
+     "Griffin's 2:1 recurrent/local pattern, 2 remainder layers, ring cache below the window"),
+    ("recurrentgemma-2b", 1, 8192, 32, 0, {"attention_impl": "auto"},
+     "two RG-LRU chunks, the ring wrapped 4 times, blockwise windowed prefill"),
+    ("whisper-medium", 8, 128, 64, 1500, {},
+     "30 s of audio (1500 frames after the conv stub), a 128-token decoder prompt"),
 )
 SERVE_CHECK_STEPS = 4  # decode steps held against the full forward
 # The cached path and the full forward round bf16 (8 significant bits) at
@@ -2012,10 +2023,12 @@ SERVE_CHECK_STEPS = 4  # decode steps held against the full forward
 # ratio near 1-1.4).
 SERVE_BF16_TOL = 0.1  # per batch row: RMS(cached - forward) / std(forward)
 # In bf16 an MoE's top-k router re-routes the compared token in several
-# layers (tools/serve_route_flips.py counts them), so the MoE's cached path
-# is held against its forward in f32 at full width and depth, to the
-# reference's own f32 decode-vs-forward tolerance (tests/test_arch_smoke.py:57);
-# its bf16 ratios are reported beside.
+# layers (tools/serve_route_flips.py counts them), and the xLSTM's layers
+# amplify the two paths' different bf16 roundings with depth
+# (tools/serve_recurrent_drift.py), so their cached paths are held against
+# the forward in f32 at full width and depth, to the reference's own f32
+# decode-vs-forward tolerance (tests/test_arch_smoke.py:57); their bf16
+# ratios are reported beside.
 SERVE_F32_RATIO_TOL = 3e-3
 SERVE_F32_TOL = 1e-4  # card vs CPU, f32 reduced configs (d), elementwise
 def _kernel_wrappers() -> dict:
@@ -2031,14 +2044,20 @@ def _kernel_wrappers() -> dict:
     return {fn.__name__: fn for fn in fns}
 
 
-def _serve_inputs(cfg, batch: int, prompt: int, seed: int, device):
-    """Prompts and the VLM's patch embeddings from ``seed``, as
-    ``launch/serve.py`` draws them."""
+def _serve_inputs(cfg, batch: int, prompt: int, seed: int, device, frames: int = 0):
+    """Prompts, the audio family's ``frames`` encoder frames and the VLM's
+    patch embeddings from ``seed``, in ``launch/serve.py``'s order (which
+    ties the frames to the prompt's length; here each run sets it)."""
     import torch
 
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))).to(device)
     extra = {}
+    if cfg.family == "audio":
+        if frames <= 0:
+            raise ValueError(f"{cfg.name} needs encoder frames")
+        enc = rng.normal(size=(batch, frames, cfg.d_model))
+        extra["frames"] = torch.from_numpy(enc).to(device, cfg.cdtype)
     if cfg.family == "vlm":
         patches = rng.normal(size=(batch, cfg.num_patch_tokens, cfg.d_model))
         extra["patch_embeds"] = torch.from_numpy(patches).to(device, cfg.cdtype)
@@ -2047,13 +2066,18 @@ def _serve_inputs(cfg, batch: int, prompt: int, seed: int, device):
 
 def serve_check_config(cfg):
     """The config whose cached path ``serve_path`` holds against its full
-    forward: ``cfg`` itself, or for an MoE that config in f32 at a no-drop
-    capacity (E / top_k, so a forward over more tokens keeps every
-    assignment the cached steps kept)."""
-    if cfg.moe is None:
+    forward: ``cfg`` itself, or in f32 for a family whose bf16 paths
+    disagree by design: an MoE (its router re-routes near ties;
+    ``tools/serve_route_flips.py``), at a no-drop capacity (E / top_k,
+    so a forward over more tokens keeps every assignment the cached
+    steps kept), and the xLSTM (its 24 layers amplify the two paths'
+    different bf16 roundings; ``tools/serve_recurrent_drift.py``)."""
+    if cfg.moe is not None:
+        no_drop = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+        cfg = cfg.with_(moe=no_drop)
+    elif cfg.family != "ssm":
         return cfg
-    no_drop = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
-    return cfg.with_(moe=no_drop, param_dtype="float32", compute_dtype="float32")
+    return cfg.with_(param_dtype="float32", compute_dtype="float32")
 
 
 def check_cached_path(cfg, params, prompts, extra, device) -> list[float]:
@@ -2088,14 +2112,85 @@ def _free(device) -> None:
         torch.cuda.empty_cache()
 
 
-def serve_path(device, cfg, batch: int, prompt: int, tokens: int, seed: int = SEED,
-               card: str | None = None, log=log) -> dict:
+def decode_work(cfg, params, batch: int, frames: int, context: int) -> dict:
+    """The least work of one decode step at ``context`` tokens: the bytes
+    it must move, each once (every weight the step reads; a recurrent
+    state read and written whole; a cache's filled slots, at most a
+    ring's W, and Whisper's ``enc_out`` read; the f32 logits written),
+    and its operations (2 per weight read per batch row, and Whisper's
+    cross-attention K/V projections of ``enc_out``, which the reference
+    recomputes every step: 2·B·frames·d·2d per layer)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.state import flatten
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    leaves = flatten(params)
+    if cfg.family == "audio":  # no encoder weight, one row of the position table
+        skip = ("enc_layers/", "enc_norm/", "dec_pos")
+        leaves = {k: v for k, v in leaves.items() if not k.startswith(skip)}
+        leaves["dec_pos"] = params["dec_pos"][0]
+    weights = nbytes(leaves.values())
+    kw = {"enc_len": frames} if cfg.family == "audio" else {}
+    cache = flatten(get_model(cfg).init_kv_cache(cfg, batch, context, device="meta", **kw))
+    if cfg.family == "ssm":
+        state = 2 * nbytes(cache.values())
+    elif cfg.family == "hybrid":  # the ring holds min(context, window) filled slots
+        ring = [v for k, v in cache.items() if k.startswith("triples/4/")]
+        state = nbytes(ring) + 2 * (nbytes(cache.values()) - nbytes(ring))
+    else:  # every slot up to ``context`` filled, and enc_out
+        state = nbytes(cache.values())
+    ops = 2 * batch * sum(v.numel() for v in leaves.values())
+    if cfg.family == "audio":
+        ops += 2 * batch * frames * cfg.d_model * 2 * cfg.d_model * cfg.n_layers
+    return {"weight_bytes": weights, "state_bytes": state, "logit_bytes": 4 * batch * cfg.vocab,
+            "bytes": weights + state + 4 * batch * cfg.vocab, "ops": ops}
+
+
+def slstm_prefill_share(cfg, params, prompts, device) -> float:
+    """The share of an xLSTM prefill's host-clock time spent in its sLSTM
+    blocks (the card synchronised around each block)."""
+    import torch
+
+    from repro_torch.models import xlstm
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    real, spent = xlstm.slstm_block_fwd, [0.0]
+
+    def timed(*args, **kw):
+        sync()
+        t = time.perf_counter()
+        out = real(*args, **kw)
+        sync()
+        spent[0] += time.perf_counter() - t
+        return out
+
+    xlstm.slstm_block_fwd = timed
+    try:
+        sync()
+        t0 = time.perf_counter()
+        xlstm.prefill(cfg, params, prompts)
+        sync()
+        total = time.perf_counter() - t0
+    finally:
+        xlstm.slstm_block_fwd = real
+    return spent[0] / total
+
+
+def serve_path(device, cfg, batch: int, prompt: int, tokens: int, frames: int = 0,
+               seed: int = SEED, card: str | None = None, log=log) -> dict:
     """Serve ``cfg`` at random weights from ``seed`` through
     ``launch/serve.py::serve``: first the check of the cached path against
-    the full forward (``serve_check_config``; an MoE's in f32 on its own
-    parameters, freed before the served ones are built), then the timed
-    run at ``cfg`` itself (every logit finite), then one profiled decode
-    step and the unembedding's f32 copy."""
+    the full forward (``serve_check_config``; an MoE's or an xLSTM's in
+    f32 on its own parameters, freed before the served ones are built),
+    then the timed run at ``cfg`` itself (every logit finite), then one
+    profiled decode step and the unembedding's f32 copy.  ``frames``: the
+    audio family's encoder frames (they take no cache slot).  For the
+    xLSTM also the sLSTM's share of a prefill."""
     import torch
 
     from repro_torch.launch.serve import serve
@@ -2112,7 +2207,9 @@ def serve_path(device, cfg, batch: int, prompt: int, tokens: int, seed: int = SE
     same = check_cfg.param_dtype == cfg.param_dtype
     if not same:
         params = model.init_params(check_cfg, seed, device)
-        ratios = check_cached_path(check_cfg, params, *_serve_inputs(check_cfg, batch, prompt, seed, device), device)
+        ratios = check_cached_path(
+            check_cfg, params, *_serve_inputs(check_cfg, batch, prompt, seed, device, frames), device
+        )
         del params
         _free(device)
 
@@ -2125,9 +2222,8 @@ def serve_path(device, cfg, batch: int, prompt: int, tokens: int, seed: int = SE
     init_s = time.perf_counter() - t0
     peak_init = torch.cuda.max_memory_allocated() if on_card else None
     n_params = sum(p.numel() for p in flatten(params).values())
-    weight_bytes = sum(p.numel() * p.element_size() for p in flatten(params).values())
-    prompts, extra = _serve_inputs(cfg, batch, prompt, seed, device)
-    n_ctx = prompt + (cfg.num_patch_tokens if extra else 0)
+    prompts, extra = _serve_inputs(cfg, batch, prompt, seed, device, frames)
+    n_ctx = prompt + (extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0)
     if same:
         ratios = check_cached_path(check_cfg, params, prompts, extra, device)
         reported = None
@@ -2162,13 +2258,9 @@ def serve_path(device, cfg, batch: int, prompt: int, tokens: int, seed: int = SE
     if launched:
         raise AssertionError(f"the serving path launched B1-B7 kernels: {launched}")
 
-    # the bound of a decode step at the timed steps' middle offset: every
-    # weight read once (the MoE's dense einsum reads every expert), the
-    # cache's filled slots read once, the logits written once
-    cache = model.init_kv_cache(cfg, 1, 1, device="meta")
-    slot_bytes = sum(c.element_size() * c[:, 0, 0].numel() for c in cache.values())
-    mid = n_ctx + tokens // 2
-    bound_bytes = weight_bytes + slot_bytes * batch * mid + 4 * batch * cfg.vocab
+    # the bound of a decode step at the timed steps' middle offset (the
+    # MoE's dense einsum reads every expert)
+    work = decode_work(cfg, params, batch, frames, n_ctx + tokens // 2)
     out = {
         "arch": cfg.name,
         "layers": cfg.n_layers,
@@ -2176,6 +2268,7 @@ def serve_path(device, cfg, batch: int, prompt: int, tokens: int, seed: int = SE
         "batch": batch,
         "prompt": prompt,
         "context": n_ctx,
+        "frames": frames,
         "tokens_generated": batch * tokens,
         "attention_impl": cfg.attention_impl,
         "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
@@ -2186,7 +2279,8 @@ def serve_path(device, cfg, batch: int, prompt: int, tokens: int, seed: int = SE
         "decode_tokens_per_s": batch * (tokens - 1) / (marks[-1] - marks[0]),
         "peak_init_bytes": peak_init,
         "peak_serve_bytes": peak_serve,
-        "decode_bound_bytes": bound_bytes,
+        "decode_bound_bytes": work["bytes"],
+        "decode_bound_parts": work,
         "sample": ids[0, :8].tolist(),
         "check": {
             "decode_vs_forward": ratios,
@@ -2196,15 +2290,22 @@ def serve_path(device, cfg, batch: int, prompt: int, tokens: int, seed: int = SE
             "metric": "per batch row RMS(cached - forward) / std(forward), worst row",
             "capacity_factor": check_cfg.moe.capacity_factor if cfg.moe else None,
             "why": "bf16 rounds at other points on the two paths; a wrong slot, position or "
-                   "mask gives ~1; an MoE is held in f32, its bf16 router re-routes near ties",
+                   "mask gives ~1; an MoE is held in f32, its bf16 router re-routes near ties; "
+                   "the xLSTM in f32, its layers amplify bf16 rounding differences with depth",
             **({"served_dtype_ratios_not_gated": reported} if reported else {}),
         },
     }
+    if cfg.family == "ssm":
+        out["slstm_prefill_share"] = slstm_prefill_share(cfg, params, prompts, device)
     if on_card:
         bw = hbm_rate(torch.cuda.get_device_name(0))
-        out["decode_bound_ms"] = bound_bytes / bw * 1e3
+        out["decode_bytes_bound_ms"] = work["bytes"] / bw * 1e3
+        out["decode_ops_bound_ms"] = work["ops"] / 989e12 * 1e3  # bf16 dense peak
+        out["decode_bound_ms"] = max(out["decode_bytes_bound_ms"], out["decode_ops_bound_ms"])
+        out["decode_bound_by"] = (
+            "bytes" if out["decode_bytes_bound_ms"] >= out["decode_ops_bound_ms"] else "operations"
+        )
         out["decode_ms_over_bound"] = p50 / out["decode_bound_ms"]
-        out["decode_ops_bound_ms"] = 2 * n_params * batch / 989e12 * 1e3  # bf16 dense peak
         # one decode step under the profiler, from a fresh prefill, warm
         prefill = make_prefill_step(cfg, max_len=n_ctx + 3)
         decode = make_decode_step(cfg)
@@ -2234,7 +2335,8 @@ def serve_path(device, cfg, batch: int, prompt: int, tokens: int, seed: int = SE
     return out
 
 
-def serve_card_vs_cpu(archs=("granite-8b", "internvl2-26b", "deepseek-v2-lite-16b")) -> dict:
+def serve_card_vs_cpu(archs=("granite-8b", "internvl2-26b", "deepseek-v2-lite-16b", "xlstm-350m",
+                             "recurrentgemma-2b", "whisper-medium")) -> dict:
     """(d): each family's reduced config in f32, the same parameters and
     prompts served on the card and on the CPU: every step's logits within
     SERVE_F32_TOL and the greedy ids equal.  f32 matmuls run in full f32
@@ -2254,7 +2356,7 @@ def serve_card_vs_cpu(archs=("granite-8b", "internvl2-26b", "deepseek-v2-lite-16
         host = params_to_reference(get_model(cfg).init_params(cfg, SEED, "cpu"))
         runs = {}
         for device in ("cpu", "cuda"):
-            prompts, extra = _serve_inputs(cfg, 2, 16, SEED, device)
+            prompts, extra = _serve_inputs(cfg, 2, 16, SEED, device, frames=24)
             logs = []
             ids = serve(cfg, params_from_reference(host, device=device), prompts, 8, extra, device,
                         on_step=lambda i, lg, logs=logs: logs.append(lg.cpu()))
@@ -2409,9 +2511,11 @@ def main() -> int:
     # next (internvl2-26b's init peaks near 58 GB)
     t0 = time.perf_counter()
     log(json.dumps({"serve_card_vs_cpu": serve_card_vs_cpu(), "tol": SERVE_F32_TOL, "card": card_line}))
-    for arch, batch, prompt, tokens, overrides, why in SERVE_RUNS:
-        log(f"serve {arch}: batch {batch}, prompt {prompt}, {tokens} new tokens, {overrides} ({why})")
-        serve_path("cuda", get_config(arch).with_(**overrides), batch, prompt, tokens, card=card_line)
+    for arch, batch, prompt, tokens, frames, overrides, why in SERVE_RUNS:
+        log(f"serve {arch}: batch {batch}, prompt {prompt}, {tokens} new tokens, {frames} frames, "
+            f"{overrides} ({why})")
+        serve_path("cuda", get_config(arch).with_(**overrides), batch, prompt, tokens, frames,
+                   card=card_line)
     log(f"serving path: {time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card_line)

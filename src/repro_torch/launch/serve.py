@@ -24,14 +24,15 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step
 def serve(cfg: ArchConfig, params, prompts, tokens: int, extra=None, device="cuda", on_step=None):
     """Greedy decoding: prefill ``prompts`` (B, S), then ``tokens - 1``
     decode steps; returns the ``tokens`` generated ids (B, tokens) on the
-    device.  ``extra`` holds the family's stub inputs (``patch_embeds``
-    for the VLM, which take the first cache slots).  ``on_step(i,
-    logits)``, if given, sees the prefill's last-position logits (i = 0)
+    device.  ``extra`` holds the family's stub inputs: ``patch_embeds``
+    for the VLM, which take the first cache slots, or ``frames`` for the
+    audio family, which the encoder reads and which take no slot.
+    ``on_step(i, logits)``, if given, sees the prefill's last-position logits (i = 0)
     and each decode step's (i >= 1), (B, 1, vocab) f32."""
     extra = extra or {}
     n_patch = extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0
     n_ctx = n_patch + prompts.shape[1]  # decode offsets are absolute cache slots
-    prefill = make_prefill_step(cfg, max_len=n_ctx + tokens + 1)  # raises for a family not ported
+    prefill = make_prefill_step(cfg, max_len=n_ctx + tokens + 1)
     decode = make_decode_step(cfg)
     dev = resolve_device(device)
     prompts = prompts.to(dev)
@@ -64,12 +65,15 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = get_model(cfg)  # raises for a family not ported yet
+    model = get_model(cfg)
     dev = resolve_device(args.device)
     params = model.init_params(cfg, 0, dev)
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)))
     extra = {}
+    if cfg.family == "audio":  # drawn after the tokens and before the patches, as the reference does
+        frames = rng.normal(size=(args.batch, args.prompt_len, cfg.d_model))
+        extra["frames"] = torch.from_numpy(frames).to(dev, cfg.cdtype)
     if cfg.family == "vlm":
         patches = rng.normal(size=(args.batch, cfg.num_patch_tokens, cfg.d_model))
         extra["patch_embeds"] = torch.from_numpy(patches).to(dev, cfg.cdtype)

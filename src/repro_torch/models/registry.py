@@ -1,28 +1,25 @@
-"""arch-family -> model implementation dispatch.
-
-The port implements the ``dense``, ``vlm`` (the dense backbone with patch
-embeddings prepended) and ``moe`` families; ``ssm``, ``hybrid`` and
-``audio`` raise, naming the ROADMAP item that ports them.
-"""
+"""arch-family -> model implementation dispatch: every family of the
+reference has its counterpart."""
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
-from repro_torch.models import moe, transformer
+from repro_torch.models import encdec, moe, rglru, transformer, xlstm
 from repro_torch.models.config import ArchConfig
 
 _FAMILY_MODULES = {
     "dense": transformer,
-    "vlm": transformer,
+    "vlm": transformer,  # + patch-embedding stub inputs
     "moe": moe,
+    "ssm": xlstm,
+    "hybrid": rglru,
+    "audio": encdec,  # + frame-embedding stub inputs
 }
 
 
 def get_model(cfg: ArchConfig) -> SimpleNamespace:
-    mod = _FAMILY_MODULES.get(cfg.family)
-    if mod is None:
-        raise NotImplementedError(f"the {cfg.family!r} family is not ported yet: ROADMAP A8c")
+    mod = _FAMILY_MODULES[cfg.family]
     return SimpleNamespace(
         init_params=mod.init_params,
         forward=mod.forward,

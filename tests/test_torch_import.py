@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module loads
 neither JAX nor the reference package, and no port source (nor
-``chip_smoke.py``, which drives the port on the card) imports them."""
+``chip_smoke.py``, which drives the port on the card, nor the tools
+beside it) imports them."""
 
 import ast
 import os
@@ -48,6 +49,7 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.kernels.mws_count.ops" in mods
     assert "repro_torch.query.shard" in mods
     assert "repro_torch.models.moe" in mods and "repro_torch.launch.serve" in mods
+    assert {"repro_torch.models.xlstm", "repro_torch.models.rglru", "repro_torch.models.encdec"} <= set(mods)
     _import_in_subprocess(mods)
 
 
@@ -75,7 +77,7 @@ def test_the_sharded_fleet_loads_no_jax():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"] + sorted((SRC.parent / "tools").glob("*.py")),
     ids=lambda p: str(p.relative_to(SRC.parent)),
 )
 def test_no_port_source_imports_jax_or_the_reference(path):

@@ -1,6 +1,8 @@
 """LM serving in the port against the reference: attention with a KV cache,
 prefill and decode for the dense, VLM and MoE families, ``demo_batch``,
-``serve`` and its launcher, and the cache's in-place contract.
+``serve`` and its launcher for every family, and the cache's in-place
+contract.  The recurrent and encoder-decoder families' prefill and
+decode are held to the reference in ``tests/test_torch_{xlstm,rglru,encdec}.py``.
 
 Both packages get identical inputs: parameters drawn once (the port's
 seeded init, as numpy) and carried into the port with
@@ -22,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve
 from repro_torch.launch.specs import demo_batch
@@ -31,6 +33,7 @@ from repro_torch.models.registry import get_model
 from repro_torch.models.state import params_from_reference, params_to_reference
 
 ARCHS = ["granite-8b", "starcoder2-3b", "internvl2-26b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
+RECURRENT_AND_AUDIO = ["xlstm-350m", "recurrentgemma-2b", "whisper-medium"]
 B, S, STEPS = 2, 9, 3
 
 
@@ -46,6 +49,8 @@ def _inputs(cfg, seed):
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab, (B, S))
     extra = {}
+    if cfg.family == "audio":  # more frames than tokens
+        extra["frames"] = rng.normal(size=(B, S + 5, cfg.d_model)).astype(np.float32)
     if cfg.family == "vlm":
         patches = rng.normal(size=(B, cfg.num_patch_tokens, cfg.d_model))
         extra["patch_embeds"] = patches.astype(np.float32)
@@ -280,8 +285,8 @@ def test_serve_gives_the_reference_greedy_ids(ref_serving, port_serving, arch):
     np.testing.assert_array_equal(ids.numpy(), r.ids)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_decode_matches_own_forward(port_serving, arch):
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_decode_matches_own_forward(arch):
     """Prefill's last logits and a decode step's equal the port's full
     forward over the same tokens (``tests/test_arch_smoke.py:57``)."""
     cfg = _cfg(arch)
@@ -325,18 +330,14 @@ def test_demo_batch_is_the_references(arch, dtype):
         np.testing.assert_array_equal(g.float().numpy(), np.asarray(w).astype(np.float32), err_msg=k)
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "internvl2-26b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize(
+    "arch", ["granite-8b", "internvl2-26b", "deepseek-v2-lite-16b", *RECURRENT_AND_AUDIO]
+)
 def test_launcher_serves_on_the_cpu(capsys, arch):
     ids = serve_main(["--arch", arch, "--reduced", "--device", "cpu", "--tokens", "4"])
     assert ids.shape == (2, 4)
     out = capsys.readouterr().out
     assert "prefill 32 tokens" in out and "decoded 4 tokens x2" in out and "sample:" in out
-
-
-@pytest.mark.parametrize("arch", ["xlstm-350m", "recurrentgemma-2b", "whisper-medium"])
-def test_launcher_raises_for_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8c"):
-        serve_main(["--arch", arch, "--reduced", "--device", "cpu"])
 
 
 def test_serving_defaults_to_the_card():
@@ -360,14 +361,27 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "deepseek-v2-lite-16b"])
+REHEARSALS = {  # arch: (prompt, frames)
+    "granite-8b": (12, 0),
+    "deepseek-v2-lite-16b": (12, 0),
+    "xlstm-350m": (130, 0),  # a chunk and a ragged tail
+    "recurrentgemma-2b": (20, 0),  # the ring (window 16) full, then overwritten
+    "whisper-medium": (12, 30),  # more frames than tokens
+}
+
+
+@pytest.mark.parametrize("arch", REHEARSALS)
 def test_smoke_serve_path_rehearsal(arch):
     """``serve_path`` at a reduced config on the CPU: its checks (prefill
     and the first decode steps against the full forward) pass, and it
     reports its metrics (times are the CPU's and carry no device name)."""
     smoke = _chip_smoke()
-    out = smoke.serve_path("cpu", _cfg(arch), batch=2, prompt=12, tokens=6, log=lambda m: None)
+    prompt, frames = REHEARSALS[arch]
+    out = smoke.serve_path(
+        "cpu", _cfg(arch), batch=2, prompt=prompt, tokens=6, frames=frames, log=lambda m: None
+    )
     assert out["arch"] == _cfg(arch).name and out["tokens_generated"] == 2 * 6
+    assert out["context"] == prompt and out["frames"] == frames
     assert len(out["check"]["decode_vs_forward"]) == 1 + smoke.SERVE_CHECK_STEPS
     assert out["check"]["worst"] <= out["check"]["tol"] == smoke.SERVE_F32_RATIO_TOL
     assert out["decode_bound_bytes"] > 0 and "device_idle_share" not in out
@@ -385,7 +399,9 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["granite-8b", "internvl2-26b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize(
+    "arch", ["granite-8b", "internvl2-26b", "deepseek-v2-lite-16b", *RECURRENT_AND_AUDIO]
+)
 def test_reduced_serving_on_the_card_matches_the_cpu(cuda, arch):
     """The same params and prompts served in f32 on the card and on the
     CPU: logits within 1e-4, greedy ids equal.  f32 matmuls stay in full
