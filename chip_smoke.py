@@ -29,7 +29,13 @@ drives the port's three paths on the card:
    unpack_signs, once per gradient leaf per step), fed by the
    bitmap-index filtered corpus (mws, popcount), every loss finite and
    every leaf's packed words of the first step equal to the plain
-   version's;
+   version's; then the same training through ``Trainer(mesh=...)`` on a
+   one-rank NCCL ("data", "model") mesh, every parameter a DTensor
+   (``dist_train_path``): its first losses bit-equal to the unsharded
+   run's, its words checked the same way, the memory its init allocates
+   equal to ``launch/dryrun.py``'s count, and the dry-run's per-rank
+   bytes of starcoder2-3b and granite-8b ``train_4k`` on the 16x16 and
+   2x16x16 meshes against the card's memory;
 
 then votes packed planes of the largest gradient leaf's layout with the
 majority kernel, shows that each path launched its kernels, and prints
@@ -1768,6 +1774,30 @@ def profile_step(trainer, batches) -> dict:
     }
 
 
+def leaf_checker(checked: dict):
+    """A ``Trainer.leaf_hook`` that holds every leaf's packed words against
+    the plain version and its round trip against the sign rule (on the
+    rank's own shard of a sharded leaf), and records the leaf's length."""
+    import torch
+
+    from repro_torch.kernels.signcomp import LANES, compress_signs_ref
+
+    rows_per_chunk = 4096  # compare in slices of 64 Mi elements
+    chunk = rows_per_chunk * 32 * LANES
+
+    def check_leaf(name, acc, words, signs):
+        flat = acc.view(-1)
+        for r0 in range(0, words.shape[0], rows_per_chunk):
+            part = flat[r0 * 32 * LANES : r0 * 32 * LANES + chunk]
+            if not torch.equal(words[r0 : r0 + rows_per_chunk], compress_signs_ref(part, LANES)):
+                raise AssertionError(f"{name}: packed words != plain version at row {r0}")
+            if not torch.equal(signs[r0 * 32 * LANES : r0 * 32 * LANES + chunk], sign_rule(part)):
+                raise AssertionError(f"{name}: round trip != sign rule at row {r0}")
+        checked[name] = flat.numel()
+
+    return check_leaf
+
+
 def train_path(device, cfg, log=log) -> dict:
     """Train ``cfg`` with signSGD through ``Trainer`` on batches of the
     bitmap-index filtered corpus: WARMUP_STEPS steps (the first checks
@@ -1779,7 +1809,7 @@ def train_path(device, cfg, log=log) -> dict:
     from repro_torch.data.pipeline import SyntheticCorpus
     from repro_torch.kernels.mws import mws_gather
     from repro_torch.kernels.popcount import popcount
-    from repro_torch.kernels.signcomp import LANES, compress_signs, compress_signs_ref, decompress_signs
+    from repro_torch.kernels.signcomp import compress_signs, decompress_signs
     from repro_torch.models.state import flatten
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -1821,22 +1851,8 @@ def train_path(device, cfg, log=log) -> dict:
         f"{want}); {setup_s:.2f} s"
     )
 
-    rows_per_chunk = 4096  # compare in slices of 64 Mi elements
-    chunk = rows_per_chunk * 32 * LANES
     checked = {}
-
-    def check_leaf(name, acc, words, signs):
-        flat = acc.view(-1)
-        n = flat.numel()
-        for r0 in range(0, words.shape[0], rows_per_chunk):
-            part = flat[r0 * 32 * LANES : r0 * 32 * LANES + chunk]
-            if not torch.equal(words[r0 : r0 + rows_per_chunk], compress_signs_ref(part, LANES)):
-                raise AssertionError(f"{name}: packed words != plain version at row {r0}")
-            if not torch.equal(signs[r0 * 32 * LANES : r0 * 32 * LANES + chunk], sign_rule(part)):
-                raise AssertionError(f"{name}: round trip != sign rule at row {r0}")
-        checked[name] = n
-
-    trainer.leaf_hook = check_leaf
+    trainer.leaf_hook = leaf_checker(checked)
     losses = trainer.train(batches, 1, log_every=0)
     trainer.leaf_hook = None
     if sorted(checked) != sorted(leaves):
@@ -1887,6 +1903,162 @@ def train_path(device, cfg, log=log) -> dict:
         out["profile"] = profile_step(trainer, batches)
         log(f"  one step under torch.profiler: {out['profile']}")
     del trainer, batches, corpus
+    return out
+
+
+# -- phase 6b: the sharded trainer on a one-rank mesh -----------------------------
+
+DIST_STEPS = 3  # losses held against train_path's first steps
+DIST_TIMED_STEPS = 4
+DRYRUN_CELLS = [(a, "train_4k", mp) for a in ("starcoder2-3b", "granite-8b") for mp in (False, True)]
+
+
+def trainer_state_bytes(cfg, mesh_shape=(1, 1)) -> dict:
+    """``launch/dryrun.py``'s per-rank count of what ``Trainer`` allocates
+    at init for ``cfg`` with signSGD on a ("data", "model") mesh of
+    ``mesh_shape``: parameters, optimizer state (the moments; the step is
+    a host int in the port, 4 bytes in the count) and error feedback."""
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    shape = ShapeConfig("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    names, args, resolved = dryrun.build_cell(cfg, shape, mesh, compress_grads="signsgd")
+    groups = dryrun.per_rank(args, resolved, mesh)
+    return {n: sum(r[3] for r in rows) for n, rows in zip(names, groups) if n != "batch"}
+
+
+def dist_train_path(device, cfg, train: dict, card: str | None = None, log=log) -> dict:
+    """``train_path`` again through ``Trainer(mesh=...)`` on a one-rank
+    ("data", "model") mesh: NCCL on the card (gloo on the CPU), brought up
+    over a file store in a temporary directory, so no port is taken.  The
+    same seed and filtered batches: the first DIST_STEPS losses against
+    ``train_path``'s, every leaf's packed words of the first step against
+    the plain version, the memory Trainer init allocates against the
+    dry-run's count (1%), B5/B6 once per leaf per step; then timed steps,
+    one profiled step, and the dry-run's per-rank bytes at 16x16 and
+    2x16x16."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.kernels.signcomp import compress_signs, decompress_signs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.models.state import flatten
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev_type = torch.device(device).type
+    on_card = dev_type == "cuda"
+    kernels = {"pack_signs": compress_signs, "unpack_signs": decompress_signs}
+    store = tempfile.mkdtemp()
+    init_process_group(dev_type, init_method=f"file://{store}/pg")
+    try:
+        mesh = make_host_mesh(1, 1, device_type=dev_type)
+        tcfg = TrainerConfig(
+            opt=OptimizerConfig(mode="signsgd", lr=TRAIN_LR), compress_grads="signsgd"
+        )
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, tcfg, device=device, mesh=mesh)
+        init_s = time.perf_counter() - t0
+        leaves = flatten(trainer.params)
+        if not all(is_dtensor(p) for p in leaves.values()):
+            raise AssertionError("a parameter of the sharded trainer is not a DTensor")
+        want = trainer_state_bytes(cfg)
+        allocated = torch.cuda.memory_allocated() - before if on_card else None
+        if on_card and abs(allocated - sum(want.values())) > 0.01 * sum(want.values()):
+            raise AssertionError(f"Trainer init allocated {allocated} bytes, the dry-run counts {want}")
+        log(
+            f"dist train setup: {cfg.name} on a {tuple(mesh.mesh.shape)} {dist.get_backend()} mesh, "
+            f"{len(leaves)} DTensor leaves, init {init_s:.2f} s, allocated {allocated} bytes, "
+            f"dry-run count {sum(want.values())} {want}"
+        )
+        corpus = SyntheticCorpus(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, num_samples=TRAIN_SAMPLES, device=device
+        )
+        batches = corpus.batches(TRAIN_BATCH, TRAIN_FILTER)
+
+        for fn in kernels.values():
+            fn.launches = 0
+        checked = {}
+        trainer.leaf_hook = leaf_checker(checked)
+        losses = trainer.train(batches, 1, log_every=0)
+        trainer.leaf_hook = None
+        if sorted(checked) != sorted(leaves):
+            raise AssertionError(f"checked {len(checked)} of {len(leaves)} leaves")
+        losses += trainer.train(batches, DIST_STEPS - 1, log_every=0)
+        step_s = []
+        for _ in range(DIST_TIMED_STEPS):
+            if on_card:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses += trainer.train(batches, 1, log_every=0)
+            step_s.append(time.perf_counter() - t1)
+        steps = DIST_STEPS + DIST_TIMED_STEPS
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+
+        ref = train["losses"][:DIST_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[:DIST_STEPS], ref)]
+        if losses[:DIST_STEPS] != ref:
+            log(f"dist train: first losses {losses[:DIST_STEPS]} vs train_path {ref}, rel {rel}")
+            if max(rel) > 1e-6:
+                raise AssertionError(f"sharded losses {losses[:DIST_STEPS]} != train_path's {ref}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite loss: {losses}")
+        if on_card and not launches["pack_signs"] == launches["unpack_signs"] == len(leaves) * steps:
+            raise AssertionError(f"sign kernels launched {launches}, not once per leaf per step")
+        p50 = statistics.median(step_s)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        out = {
+            "arch": cfg.name,
+            "mesh": list(mesh.mesh.shape),
+            "backend": dist.get_backend(),
+            "losses": losses,
+            "train_path_losses": ref,
+            "losses_bit_equal": losses[:DIST_STEPS] == ref,
+            "max_rel_loss_diff": max(rel),
+            "init_allocated": allocated,
+            "dryrun_bytes": want,
+            "step_p50_s": p50,
+            "tokens_per_s": tokens * DIST_TIMED_STEPS / sum(step_s),
+            "step_s": step_s,
+            "train_path_step_p50_s": train.get("step_p50_s"),
+            "train_path_tokens_per_s": train.get("tokens_per_s"),
+            "launches": launches,
+            "max_memory_allocated": peak,
+        }
+        log(
+            f"dist train: {steps} steps, losses {losses[0]:.4f} -> {losses[-1]:.4f} (first "
+            f"{DIST_STEPS} bit-equal to train_path: {out['losses_bit_equal']}), step p50 "
+            f"{p50 * 1e3:.2f} ms vs {train.get('step_p50_s', float('nan')) * 1e3:.2f} ms, "
+            f"{out['tokens_per_s']:.1f} tokens/s, launches {launches}, max_memory_allocated {peak}"
+        )
+        if on_card:
+            out["profile"] = profile_step(trainer, batches)
+            out["train_path_idle_share"] = train.get("profile", {}).get("device_idle_share")
+            log(f"  one sharded step under torch.profiler: {out['profile']}")
+        del trainer, batches, corpus
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    memory = torch.cuda.get_device_properties(0).total_memory if on_card else None
+    cells = [dryrun.run_cell(a, s, mp, device_bytes=memory) for a, s, mp in DRYRUN_CELLS]
+    log(json.dumps({"dryrun": [
+        {k: c[k] for k in ("arch", "shape", "mesh", "argument_bytes", "bytes_by_group", "device_bytes", "fits")}
+        for c in cells
+    ], "temp_bytes": None, "why": dryrun.NO_TEMP, "card": card}))
     return out
 
 
@@ -2493,6 +2665,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(json.dumps({"train_path": train, "card": card_line}))
     log(f"training path: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_train = dist_train_path("cuda", get_config(TRAIN_ARCH), train, card=card_line)
+    log(json.dumps({"dist_train_path": dist_train, "card": card_line}))
+    log(f"sharded training path: {time.perf_counter() - t0:.1f} s")
+    del dist_train
+    gc.collect()
+    torch.cuda.empty_cache()
     sign_rows = signcomp_report(train["largest_leaf"], train, kind)
     torch.cuda.empty_cache()
     sign_rows.append(majority_phase(train["largest_leaf"], kind))

@@ -25,17 +25,24 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import P, constrain, stacked
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
+    FSDP,
     attention_fwd,
+    attention_specs,
     embed_fwd,
+    embedding_specs,
     host_offset,
     init_attention,
     init_embedding,
+    init_generator,
     init_layernorm,
     init_mlp,
     layernorm_fwd,
+    layernorm_specs,
     mlp_fwd,
+    mlp_specs,
     unembed_fwd,
 )
 from repro_torch.models.state import unstack
@@ -90,8 +97,7 @@ def init_dec_layer(gen, cfg, device=None, leading=()):
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """Random parameters from ``seed`` (a torch generator on ``device``;
     not the reference's numbers)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(seed, device)
     d = cfg.d_model
     dec_pos = torch.randn((MAX_DEC_POS, d), generator=gen, device=device)
     return {
@@ -104,19 +110,44 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     }
 
 
+def _attn_specs():
+    return attention_specs(bias=True)
+
+
+def param_specs(cfg: ArchConfig):
+    """The reference's logical partition specs of :func:`init_params`' tree."""
+    mlp = mlp_specs(gated=False, bias=True)
+    enc = {"attn": _attn_specs(), "mlp": mlp, "norm1": layernorm_specs(), "norm2": layernorm_specs()}
+    dec = {
+        "self": _attn_specs(),
+        "cross": _attn_specs(),
+        "mlp": mlp,
+        **{f"norm{i}": layernorm_specs() for i in (1, 2, 3)},
+    }
+    return {
+        "embed": embedding_specs(),
+        "enc_layers": stacked(enc),
+        "dec_layers": stacked(dec),
+        "dec_pos": P(None, FSDP),
+        "enc_norm": layernorm_specs(),
+        "dec_norm": layernorm_specs(),
+    }
+
+
 def _enc_layer(cfg, lp, h):
     a = layernorm_fwd(lp["norm1"], h)
     h = h + attention_fwd(
         lp["attn"], a, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, use_rope=False, causal=False
     )
     m = layernorm_fwd(lp["norm2"], h)
-    return h + mlp_fwd(lp["mlp"], m, "gelu")
+    return constrain(h + mlp_fwd(lp["mlp"], m, "gelu"), "data", None, None)
 
 
 def encode(cfg: ArchConfig, params, frames):
     """frames: (B, S_enc, d) precomputed embeddings (the frontend stub)."""
     x = frames.to(cfg.cdtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device)[None].to(cfg.cdtype)
+    x = constrain(x, "data", None, None)
     for lp in unstack(params["enc_layers"]):
         if cfg.remat:
             x = checkpoint(_enc_layer, cfg, lp, x, use_reentrant=False)
@@ -147,7 +178,7 @@ def _dec_layer(cfg, lp, x, enc_out, kv_cache=None, cache_offset=None):
         kv_x=enc_out,
     )
     m = layernorm_fwd(lp["norm3"], x)
-    return x + mlp_fwd(lp["mlp"], m, "gelu")
+    return constrain(x + mlp_fwd(lp["mlp"], m, "gelu"), "data", None, None)
 
 
 def _dec_positions(params, offset: int, S: int):
@@ -169,6 +200,7 @@ def decode_stack(cfg, params, tokens, enc_out, cache=None, offset=0, last_only=F
     S = tokens.shape[1]
     x = embed_fwd(params["embed"], tokens, cfg.cdtype)
     x = x + _dec_positions(params, offset, S)[None].to(cfg.cdtype)
+    x = constrain(x, "data", None, None)
     for i, lp in enumerate(unstack(params["dec_layers"])):
         if cache is not None:
             kv = (cache["k"][i], cache["v"][i])
@@ -180,13 +212,18 @@ def decode_stack(cfg, params, tokens, enc_out, cache=None, offset=0, last_only=F
     if last_only:
         x = x[:, -1:]
     x = layernorm_fwd(params["dec_norm"], x)
-    return unembed_fwd(params["embed"], x)
+    return constrain(unembed_fwd(params["embed"], x), "data", None, "model")
 
 
 def forward(cfg: ArchConfig, params, tokens, frames):
     """Training forward: tokens (B, S), frames (B, S_enc, d) -> logits
     (B, S, vocab) in f32."""
     return decode_stack(cfg, params, tokens, encode(cfg, params, frames))
+
+
+def kv_cache_specs(cfg: ArchConfig):
+    kv = P(None, "data", None, "model", None)
+    return {"k": kv, "v": kv, "enc_out": P("data", None, None)}
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0, device="cuda"):

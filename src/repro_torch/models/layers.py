@@ -7,6 +7,10 @@ a plain copy.  Matmul-bearing layers compute in the dtype of their
 input (bf16 on the card, f32 in the tests); norms and logits run in f32.
 Attention is written out in plain torch ops (the naive and the
 online-softmax paths) to mirror the reference, not a fused library call.
+
+Each ``init_*`` has a ``*_specs`` beside it that gives the reference's
+logical partition specs for the same tree (``fsdp`` / ``model``, resolved
+by :mod:`repro_torch.distributed.sharding`).
 """
 
 from __future__ import annotations
@@ -19,7 +23,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import P, is_dtensor, local_map_specs
+
 Params = dict[str, torch.Tensor]
+
+# Logical sharding axes, as in the reference: "fsdp" = ("pod", "data")
+# where the mesh has them, "model" = tensor parallel.
+FSDP = "fsdp"
+TP = "model"
+
+
+def init_generator(seed: int, device) -> torch.Generator | None:
+    """A generator seeded with ``seed`` on ``device``; none on the meta
+    device, where initialization builds shapes only."""
+    if torch.device(device).type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 def _init_dense(gen, d_in, d_out, dtype, device, scale=None, leading=()):
@@ -37,6 +58,10 @@ def init_rmsnorm(d, dtype=torch.float32, device=None, leading=()) -> Params:
     return {"scale": torch.ones((*leading, d), dtype=dtype, device=device)}
 
 
+def rmsnorm_specs():
+    return {"scale": P(None)}
+
+
 def rmsnorm_fwd(p, x, eps=1e-6):
     dt = x.dtype
     x = x.float()
@@ -49,6 +74,10 @@ def init_layernorm(d, dtype=torch.float32, device=None, leading=()) -> Params:
         "scale": torch.ones((*leading, d), dtype=dtype, device=device),
         "bias": torch.zeros((*leading, d), dtype=dtype, device=device),
     }
+
+
+def layernorm_specs():
+    return {"scale": P(None), "bias": P(None)}
 
 
 def layernorm_fwd(p, x, eps=1e-5):
@@ -70,8 +99,26 @@ def init_embedding(gen, vocab, d, dtype=torch.float32, device=None) -> Params:
     return {"embedding": emb.mul_(0.02).to(dtype)}
 
 
+def embedding_specs():
+    return {"embedding": P(TP, FSDP)}  # vocab on the TP axis
+
+
 def embed_fwd(p, tokens, compute_dtype):
-    return F.embedding(tokens, p["embedding"]).to(compute_dtype)
+    table = p["embedding"]
+    if is_dtensor(table):
+        # DTensor cannot look up a table laid out (vocab on model, d on
+        # data) with ids sharded on data (GSPMD resolves that conflict, a
+        # mask-shape IndexError here): look up with replicated ids, and
+        # the caller's constrain() lays the rows out on the batch again
+        from torch.distributed.tensor import DTensor, Replicate
+
+        rep = (Replicate(),) * table.device_mesh.ndim
+        tokens = (
+            tokens.redistribute(table.device_mesh, rep)
+            if is_dtensor(tokens)
+            else DTensor.from_local(tokens, table.device_mesh, rep, run_check=False)
+        )
+    return F.embedding(tokens, table).to(compute_dtype)
 
 
 def unembed_fwd(p, x):
@@ -140,6 +187,13 @@ def init_attention(
         ):
             p[name] = torch.zeros((*leading, d), dtype=dtype, device=device)
     return p
+
+
+def attention_specs(bias=False):
+    s = {"wq": P(FSDP, TP), "wk": P(FSDP, TP), "wv": P(FSDP, TP), "wo": P(TP, FSDP)}
+    if bias:
+        s |= {"bq": P(TP), "bk": P(TP), "bv": P(TP), "bo": P(None)}
+    return s
 
 
 def _mask_bias(q_len, kv_len, offset, window, device):
@@ -222,6 +276,22 @@ def _blockwise_attention(qg, k, v, *, offset, window, causal, scale):
     return out.movedim(3, 1).reshape(B, Sq, NKV * G * hd)
 
 
+def _attention_core(qg, k, v, *, offset, window, causal, blockwise):
+    """Scores, softmax and the weighted sum over V: qg (B, Sq, n_kv, group,
+    hd), k/v (B, Skv, n_kv, hd) -> (B, Sq, n_kv * group * hd) in qg's dtype."""
+    B, S, _, _, hd = qg.shape
+    if blockwise:
+        return _blockwise_attention(
+            qg, k, v, offset=offset, window=window, causal=causal, scale=1.0 / math.sqrt(hd)
+        ).to(qg.dtype)
+    logits = torch.einsum("bsngh,btnh->bngst", qg, k) / math.sqrt(hd)
+    logits = logits.float()
+    if causal:
+        logits = logits + _mask_bias(S, k.shape[1], offset, window, qg.device)
+    attn = torch.softmax(logits, dim=-1).to(qg.dtype)
+    return torch.einsum("bngst,btnh->bsngh", attn, v).reshape(B, S, -1)
+
+
 def attention_fwd(
     p,
     x,
@@ -276,27 +346,22 @@ def attention_fwd(
         v = write_cache(cv, v, offset).to(cdt)
 
     group = n_heads // n_kv_heads
-    kv_len = k.shape[1]
     qg = q.reshape(B, S, n_kv_heads, group, hd)
     is_causal = causal or kv_cache is not None
-    use_blockwise = impl == "blockwise" or (impl == "auto" and kv_len >= BLOCKWISE_MIN_KV)
-    if use_blockwise:
-        out = _blockwise_attention(
-            qg,
-            k,
-            v,
-            offset=offset,
-            window=window,
-            causal=is_causal,
-            scale=1.0 / math.sqrt(hd),
-        ).to(cdt)
-    else:
-        logits = torch.einsum("bsngh,btnh->bngst", qg, k) / math.sqrt(hd)
-        logits = logits.float()
-        if is_causal:
-            logits = logits + _mask_bias(S, kv_len, offset, window, x.device)
-        attn = torch.softmax(logits, dim=-1).to(cdt)
-        out = torch.einsum("bngst,btnh->bsngh", attn, v).reshape(B, S, -1)
+    use_blockwise = impl == "blockwise" or (impl == "auto" and k.shape[1] >= BLOCKWISE_MIN_KV)
+    core = functools.partial(
+        _attention_core,
+        offset=offset,
+        window=window,
+        causal=is_causal,
+        blockwise=use_blockwise,
+    )
+    # per batch row and KV head: on DTensors each rank runs its own rows
+    # and heads (op by op, the batched matmuls would fold a data-sharded
+    # batch dim into a model-sharded head dim, a strided layout whose
+    # redistribution plans take seconds to search)
+    heads = P("data", None, "model")
+    out = local_map_specs(core, (qg, k, v), (heads,) * 3, (heads,))
     out = torch.einsum("bsh,hd->bsd", out, p["wo"].to(cdt))
     if p.get("bo") is not None:
         out = out + p["bo"].to(cdt)
@@ -322,6 +387,15 @@ def init_mlp(
         p["b_up"] = torch.zeros((*leading, d_ff), dtype=dtype, device=device)
         p["b_down"] = torch.zeros((*leading, d_model), dtype=dtype, device=device)
     return p
+
+
+def mlp_specs(gated=True, bias=False):
+    s = {"up": P(FSDP, TP), "down": P(TP, FSDP)}
+    if gated:
+        s["gate"] = P(FSDP, TP)
+    if bias:
+        s |= {"b_up": P(TP), "b_down": P(None)}
+    return s
 
 
 _ACTIVATIONS = {

@@ -19,26 +19,35 @@ occur.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import P, constrain, local_map_specs, stacked
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     _init_dense,
     _mask_bias,
     apply_rope,
+    FSDP,
+    TP,
     attention_fwd,
+    attention_specs,
     embed_fwd,
+    embedding_specs,
     host_offset,
     init_attention,
     init_embedding,
+    init_generator,
     init_mlp,
     init_rmsnorm,
     mlp_fwd,
+    mlp_specs,
     rmsnorm_fwd,
+    rmsnorm_specs,
     unembed_fwd,
     write_cache,
 )
@@ -66,19 +75,24 @@ def init_moe_ffn(gen, cfg: ArchConfig, device=None, leading=()):
     return p
 
 
-def moe_ffn_fwd(p, x, cfg: ArchConfig):
-    """x: (B, S, d).  Groups = sequences; capacity per group."""
-    m = cfg.moe
+def moe_ffn_specs(cfg: ArchConfig):
+    s = {
+        "router": P(FSDP, None),
+        "w_gate": P(TP, FSDP, None),
+        "w_up": P(TP, FSDP, None),
+        "w_down": P(TP, None, FSDP),
+    }
+    if cfg.moe.num_shared:
+        s["shared"] = mlp_specs(gated=True)
+    return s
+
+
+def _dispatch(x, eidx, *, E: int, C: int, mode: str):
+    """The (B, E, C, d) expert buffer of one group (sequence) per row of
+    ``x``, and each assignment's slot ``pos`` (B, S*k) and ``keep`` flag."""
     B, S, d = x.shape
-    E, k = m.num_experts, m.top_k
-    C = max(1, int(math.ceil(m.capacity_factor * S * k / E)))
+    k = eidx.shape[-1]
     cdt, dev = x.dtype, x.device
-
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])  # (B, S, E) f32
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, eidx = torch.topk(probs, k, dim=-1)  # (B, S, k), descending
-    gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
-
     # position-in-expert within each group: cumulative count over the S*k
     # assignments in order
     flat_e = eidx.reshape(B, S * k)
@@ -90,7 +104,7 @@ def moe_ffn_fwd(p, x, cfg: ArchConfig):
     b_ix = torch.arange(B, device=dev)[:, None].expand(B, S * k)
     pos_c = torch.where(keep, pos, C)  # dropped -> scratch slot C
 
-    if cfg.moe_dispatch == "gather":
+    if mode == "gather":
         # scatter only the slot -> assignment indices, then gather tokens
         a_ix = torch.arange(S * k, device=dev)[None].expand(B, S * k)
         slot_src = torch.full((B, E, C + 1), S * k, dtype=torch.long, device=dev)
@@ -106,18 +120,48 @@ def moe_ffn_fwd(p, x, cfg: ArchConfig):
         # scratch slot's sum depends on the order of the adds
         xk = torch.repeat_interleave(x, k, dim=1)  # (B, S*k, d) token per assignment
         buf = torch.zeros((B, E, C + 1, d), dtype=cdt, device=dev)
-        buf.index_put_((b_ix, flat_e, pos_c), xk, accumulate=True)
+        buf = buf.index_put((b_ix, flat_e, pos_c), xk, accumulate=True)
         buf = buf[:, :, :C, :]
+    return buf, pos, keep
 
+
+def _combine(out_buf, gate_vals, eidx, pos, keep):
+    """Gather each assignment's expert output, weight it, sum over k."""
+    B, S, k = eidx.shape
+    C, d = out_buf.shape[2], out_buf.shape[3]
+    b_ix = torch.arange(B, device=out_buf.device)[:, None].expand(B, S * k)
+    gathered = out_buf[b_ix, eidx.reshape(B, S * k), torch.clamp(pos, max=C - 1)]  # (B, S*k, d)
+    w = (gate_vals.reshape(B, S * k) * keep.float()).to(out_buf.dtype)
+    return (gathered * w[..., None]).reshape(B, S, k, d).sum(dim=2)
+
+
+def moe_ffn_fwd(p, x, cfg: ArchConfig):
+    """x: (B, S, d).  Groups = sequences; capacity per group."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.num_experts, m.top_k
+    C = max(1, int(math.ceil(m.capacity_factor * S * k / E)))
+    cdt = x.dtype
+
+    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])  # (B, S, E) f32
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, eidx = torch.topk(probs, k, dim=-1)  # (B, S, k), descending
+    gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
+
+    # routing is per group (sequence): on DTensors each rank routes its own
+    row = P("data")
+    dispatch = functools.partial(_dispatch, E=E, C=C, mode=cfg.moe_dispatch)
+    buf, pos, keep = local_map_specs(dispatch, (x, eidx), (row, row), (row, row, row))
+    buf = constrain(buf, "data", "model", None, None)
+
+    # expert compute (EP over the model axis)
     g = torch.einsum("becd,edf->becf", buf, p["w_gate"].to(cdt))
     u = torch.einsum("becd,edf->becf", buf, p["w_up"].to(cdt))
     h = F.silu(g) * u
     out_buf = torch.einsum("becf,efd->becd", h, p["w_down"].to(cdt))
+    out_buf = constrain(out_buf, "data", "model", None, None)
 
-    # combine: gather per assignment, weight, sum over k
-    gathered = out_buf[b_ix, flat_e, torch.clamp(pos, max=C - 1)]  # (B, S*k, d)
-    w = (gate_vals.reshape(B, S * k) * keep.float()).to(cdt)
-    out = (gathered * w[..., None]).reshape(B, S, k, d).sum(dim=2)
+    out = local_map_specs(_combine, (out_buf, gate_vals, eidx, pos, keep), (row,) * 5, (row,))
 
     if "shared" in p:
         out = out + mlp_fwd(p["shared"], x, "silu")
@@ -142,6 +186,32 @@ def init_mla(gen, cfg: ArchConfig, device=None, leading=()):
         "w_o": _init_dense(gen, H * vd, d, **kw),
         "kv_norm": torch.ones((*leading, r), dtype=cfg.pdtype, device=device),
     }
+
+
+def mla_specs():
+    return {
+        "w_dkv": P(FSDP, None),
+        "w_uk": P(None, TP),
+        "w_uv": P(None, TP),
+        "w_q": P(FSDP, TP),
+        "w_o": P(TP, FSDP),
+        "kv_norm": P(None),
+    }
+
+
+def _mla_core(q_nope, q_pe, k_nope, k_pe, v, *, offset):
+    """Causal attention over the decompressed heads plus the shared RoPE
+    key: q_nope (B, S, H, nd), q_pe (B, S, H, rd), k_nope (B, T, H, nd),
+    k_pe (B, T, rd), v (B, T, H, vd) -> (B, S, H * vd)."""
+    B, S, H, nd = q_nope.shape
+    scale = 1.0 / math.sqrt(nd + q_pe.shape[-1])
+    logits = (
+        torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+        + torch.einsum("bshr,btr->bhst", q_pe, k_pe)
+    ) * scale
+    logits = logits.float() + _mask_bias(S, k_nope.shape[1], offset, None, q_nope.device)
+    attn = torch.softmax(logits, dim=-1).to(q_nope.dtype)
+    return torch.einsum("bhst,bthv->bshv", attn, v).reshape(B, S, -1)
 
 
 def mla_fwd(p, x, cfg: ArchConfig, kv_cache=None, cache_offset=None):
@@ -171,16 +241,13 @@ def mla_fwd(p, x, cfg: ArchConfig, kv_cache=None, cache_offset=None):
 
     k_nope = torch.einsum("btr,rh->bth", c_kv, p["w_uk"].to(cdt)).reshape(B, -1, H, nd)
     v = torch.einsum("btr,rh->bth", c_kv, p["w_uv"].to(cdt)).reshape(B, -1, H, vd)
-    kv_len = k_nope.shape[1]
 
-    scale = 1.0 / math.sqrt(nd + rd)
-    logits = (
-        torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
-        + torch.einsum("bshr,btr->bhst", q_pe, k_pe)
-    ) * scale
-    logits = logits.float() + _mask_bias(S, kv_len, offset, None, x.device)
-    attn = torch.softmax(logits, dim=-1).to(cdt)
-    out = torch.einsum("bhst,bthv->bshv", attn, v).reshape(B, S, H * vd)
+    # per batch row and head: on DTensors each rank runs its own
+    heads = P("data", None, "model")
+    core = functools.partial(_mla_core, offset=offset)
+    out = local_map_specs(
+        core, (q_nope, q_pe, k_nope, k_pe, v), (heads, heads, heads, P("data"), heads), (heads,)
+    )
     return torch.einsum("bsh,hd->bsd", out, p["w_o"].to(cdt))
 
 
@@ -237,21 +304,31 @@ def init_moe_layer(gen, cfg: ArchConfig, dense: bool, device=None, leading=()):
     }
 
 
+def moe_layer_specs(cfg: ArchConfig, dense: bool):
+    return {
+        "attn": mla_specs() if cfg.mla is not None else attention_specs(bias=cfg.attn_bias),
+        "ffn": mlp_specs(gated=True) if dense else moe_ffn_specs(cfg),
+        "norm1": rmsnorm_specs(),
+        "norm2": rmsnorm_specs(),
+    }
+
+
 def moe_layer_fwd(cfg, lp, x, dense: bool, kv_cache=None, cache_offset=None):
     h = rmsnorm_fwd(lp["norm1"], x)
     x = x + _attn_fwd(cfg, lp["attn"], h, kv_cache, cache_offset)
     h = rmsnorm_fwd(lp["norm2"], x)
     if dense:
-        return x + mlp_fwd(lp["ffn"], h, cfg.activation)
-    return x + moe_ffn_fwd(lp["ffn"], h, cfg)
+        x = x + mlp_fwd(lp["ffn"], h, cfg.activation)
+    else:
+        x = x + moe_ffn_fwd(lp["ffn"], h, cfg)
+    return constrain(x, "data", None, None)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """Random parameters from ``seed`` (a torch generator on ``device``;
     not the reference's numbers).  ``dense_layers`` keeps a leading axis
     of 1 when there is one dense layer, as the reference's tree does."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(seed, device)
     nd = cfg.moe.first_dense_layers
     params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, cfg.pdtype, device)}
     if nd:
@@ -259,6 +336,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     params["layers"] = init_moe_layer(gen, cfg, False, device, (cfg.n_layers - nd,))
     params["final_norm"] = init_rmsnorm(cfg.d_model, cfg.pdtype, device)
     return params
+
+
+def param_specs(cfg: ArchConfig):
+    """The reference's logical partition specs of :func:`init_params`' tree."""
+    specs = {"embed": embedding_specs()}
+    if cfg.moe.first_dense_layers:
+        specs["dense_layers"] = stacked(moe_layer_specs(cfg, dense=True))
+    specs["layers"] = stacked(moe_layer_specs(cfg, dense=False))
+    specs["final_norm"] = rmsnorm_specs()
+    return specs
 
 
 def _stacks(params):
@@ -269,14 +356,14 @@ def _stacks(params):
 
 def forward(cfg: ArchConfig, params, tokens):
     """Training forward: tokens (B, S) -> logits (B, S, vocab) in f32."""
-    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     for lp, dense in _stacks(params):
         if cfg.remat:
             x = checkpoint(moe_layer_fwd, cfg, lp, x, dense, use_reentrant=False)
         else:
             x = moe_layer_fwd(cfg, lp, x, dense)
     x = rmsnorm_fwd(params["final_norm"], x)
-    return unembed_fwd(params["embed"], x)
+    return constrain(unembed_fwd(params["embed"], x), "data", None, "model")
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
@@ -287,6 +374,13 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
         return {"c_kv": zeros(cfg.mla.kv_lora_rank), "k_pe": zeros(cfg.mla.rope_head_dim)}
     hd = cfg.resolved_head_dim
     return {"k": zeros(cfg.n_kv_heads, hd), "v": zeros(cfg.n_kv_heads, hd)}
+
+
+def kv_cache_specs(cfg: ArchConfig):
+    if cfg.mla is not None:
+        return {"c_kv": P(None, "data", None, None), "k_pe": P(None, "data", None, None)}
+    kv = P(None, "data", None, "model", None)
+    return {"k": kv, "v": kv}
 
 
 def _cache_names(cfg):
@@ -301,7 +395,7 @@ def _cached_forward(cfg: ArchConfig, params, tokens, cache, offset, last_only: b
     if last_only:
         x = x[:, -1:]
     x = rmsnorm_fwd(params["final_norm"], x)
-    return unembed_fwd(params["embed"], x), cache
+    return constrain(unembed_fwd(params["embed"], x), "data", None, "model"), cache
 
 
 @torch.no_grad()

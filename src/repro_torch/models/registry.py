@@ -26,4 +26,6 @@ def get_model(cfg: ArchConfig) -> SimpleNamespace:
         prefill=mod.prefill,
         decode_step=mod.decode_step,
         init_kv_cache=mod.init_kv_cache,
+        param_specs=mod.param_specs,
+        kv_cache_specs=mod.kv_cache_specs,
     )

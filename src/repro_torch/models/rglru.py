@@ -33,23 +33,31 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import P, constrain, stacked
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     _ACTIVATIONS,
+    FSDP,
+    TP,
     _init_dense,
     apply_rope,
     attention_fwd,
+    attention_specs,
     embed_fwd,
+    embedding_specs,
     host_offset,
     init_attention,
     init_embedding,
+    init_generator,
     init_mlp,
     init_rmsnorm,
     mlp_fwd,
+    mlp_specs,
     rmsnorm_fwd,
+    rmsnorm_specs,
     unembed_fwd,
 )
-from repro_torch.models.state import unstack
+from repro_torch.models.state import flatten, unflatten_into, unstack
 
 LRU_C = 8.0
 RGLRU_CHUNK = 4096  # longer sequences run chunk by chunk, the carry passed on
@@ -152,6 +160,19 @@ def recurrent_block_fwd(p, x, cfg, h0, conv_state=None):
 # ---------------------------------------------------------------------------
 # Local attention block (MQA, sliding window, ring-buffer decode cache)
 # ---------------------------------------------------------------------------
+
+
+def recurrent_block_specs():
+    return {
+        "w_gate": P(FSDP, TP),
+        "w_rec": P(FSDP, TP),
+        "conv": P(None, TP),
+        "w_a": P(FSDP, TP),
+        "w_x": P(FSDP, TP),
+        "lam": P(None),
+        "w_down": P(TP, FSDP),
+        "norm": P(None),
+    }
 
 
 def init_attention_block(gen, cfg: ArchConfig, device=None, leading=()):
@@ -273,6 +294,16 @@ def init_triple(gen, cfg, device=None, leading=()):
     }
 
 
+def triple_specs():
+    return {
+        "rec1": recurrent_block_specs(),
+        "rec2": recurrent_block_specs(),
+        "attn": {"attn": attention_specs(), "norm": rmsnorm_specs()},
+        **{f"mlp{i}": mlp_specs() for i in (1, 2, 3)},
+        **{f"mnorm{i}": rmsnorm_specs() for i in (1, 2, 3)},
+    }
+
+
 def _n_triples(cfg):
     return cfg.n_layers // len(cfg.hybrid.pattern)
 
@@ -284,8 +315,7 @@ def _n_rem(cfg):
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """Random parameters from ``seed`` (a torch generator on ``device``;
     not the reference's numbers)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(seed, device)
     params = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model, cfg.pdtype, device),
         "triples": init_triple(gen, cfg, device, (_n_triples(cfg),)),
@@ -298,6 +328,26 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
         }
     params["final_norm"] = init_rmsnorm(cfg.d_model, cfg.pdtype, device)
     return params
+
+
+def param_specs(cfg: ArchConfig):
+    """The reference's logical partition specs of :func:`init_params`' tree."""
+    specs = {"embed": embedding_specs(), "triples": stacked(triple_specs())}
+    for i in range(_n_rem(cfg)):
+        specs[f"rem{i}"] = {
+            "rec": recurrent_block_specs(),
+            "mlp": mlp_specs(),
+            "mnorm": rmsnorm_specs(),
+        }
+    specs["final_norm"] = rmsnorm_specs()
+    return specs
+
+
+def kv_cache_specs(cfg: ArchConfig):
+    """Every state leaf ``P(None, "data")``, as the reference's are (its
+    remainder layers' ``(batch, ...)`` leaves included)."""
+    state = init_state(cfg, 1, 1, "meta")
+    return unflatten_into(state, {k: P(None, "data") for k in flatten(state)})
 
 
 def _mlp_res(norm_p, mlp_p, x):
@@ -371,10 +421,10 @@ def _run(cfg, params, x, state, decode=False, offset=None, build_cache=False):
 
 def forward(cfg: ArchConfig, params, tokens):
     """Training forward: tokens (B, S) -> logits (B, S, vocab) in f32."""
-    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     x = _run(cfg, params, x, init_state(cfg, tokens.shape[0], 1, tokens.device))
     x = rmsnorm_fwd(params["final_norm"], x)
-    return unembed_fwd(params["embed"], x)
+    return constrain(unembed_fwd(params["embed"], x), "data", None, "model")
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):

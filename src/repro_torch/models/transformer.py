@@ -7,8 +7,10 @@ layout), and layer ``i`` reads its slice.  The forward unbinds each stack
 once, so autograd stacks the per-layer gradients back into one
 ``(L, ...)`` gradient per leaf.  With ``cfg.remat`` each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), which keeps only the layer's
-input, as the reference's ``nothing_saveable`` policy does.  The
-reference's sharding constraints have no counterpart on one device.
+input, as the reference's ``nothing_saveable`` policy does.
+:func:`param_specs` and :func:`kv_cache_specs` give the reference's
+logical partition specs, and ``constrain`` sits where the reference's
+does (a no-op on plain tensors and one-rank meshes).
 
 Serving keeps the reference's ``{"k", "v"}`` cache of shape
 ``(L, B, max_len, n_kv, hd)``, but writes each step's K/V into it in
@@ -21,18 +23,25 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import P, constrain, stacked
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     attention_fwd,
+    attention_specs,
     embed_fwd,
+    embedding_specs,
     init_attention,
     init_embedding,
+    init_generator,
     init_layernorm,
     init_mlp,
     init_rmsnorm,
     layernorm_fwd,
+    layernorm_specs,
     mlp_fwd,
+    mlp_specs,
     rmsnorm_fwd,
+    rmsnorm_specs,
     unembed_fwd,
 )
 from repro_torch.models.state import unstack
@@ -43,12 +52,17 @@ def _init_norm(cfg, d, dtype, device, leading=()):
     return init(d, dtype, device, leading=leading)
 
 
+def _norm_specs(cfg):
+    return rmsnorm_specs() if cfg.norm == "rmsnorm" else layernorm_specs()
+
+
 def _norm_fwd(cfg, p, x):
     return rmsnorm_fwd(p, x) if cfg.norm == "rmsnorm" else layernorm_fwd(p, x)
 
 
 def layer_fwd(cfg: ArchConfig, lp, x, *, kv_cache=None, cache_offset=None, window=None):
     h = _norm_fwd(cfg, lp["norm1"], x)
+    h = constrain(h, "data", None, None)
     x = x + attention_fwd(
         lp["attn"],
         h,
@@ -62,15 +76,15 @@ def layer_fwd(cfg: ArchConfig, lp, x, *, kv_cache=None, cache_offset=None, windo
         impl=cfg.attention_impl,
     )
     h = _norm_fwd(cfg, lp["norm2"], x)
-    return x + mlp_fwd(lp["mlp"], h, cfg.activation)
+    x = x + mlp_fwd(lp["mlp"], h, cfg.activation)
+    return constrain(x, "data", None, None)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     """Random parameters from ``seed`` (a torch generator on ``device``;
     not the reference's numbers — cross over with
     :func:`repro_torch.models.state.params_from_reference`)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(seed, device)
     L, d, dt = (cfg.n_layers,), cfg.d_model, cfg.pdtype
     layers = {
         "attn": init_attention(
@@ -104,11 +118,29 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     }
 
 
+def layer_specs(cfg: ArchConfig):
+    return {
+        "attn": attention_specs(bias=cfg.attn_bias),
+        "mlp": mlp_specs(gated=(cfg.activation == "silu"), bias=cfg.mlp_bias),
+        "norm1": _norm_specs(cfg),
+        "norm2": _norm_specs(cfg),
+    }
+
+
+def param_specs(cfg: ArchConfig):
+    """The reference's logical partition specs of :func:`init_params`' tree."""
+    return {
+        "embed": embedding_specs(),
+        "layers": stacked(layer_specs(cfg)),
+        "final_norm": _norm_specs(cfg),
+    }
+
+
 def _embed(cfg, params, tokens, patch_embeds):
     x = embed_fwd(params["embed"], tokens, cfg.cdtype)
-    if patch_embeds is None:
-        return x
-    return torch.cat([patch_embeds.to(cfg.cdtype), x], dim=1)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(cfg.cdtype), x], dim=1)
+    return x
 
 
 def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
@@ -118,7 +150,7 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
     prepended to the token embeddings; logits only for the token
     positions (the patch positions are dropped before the unembedding,
     which is per position)."""
-    x = _embed(cfg, params, tokens, patch_embeds)
+    x = constrain(_embed(cfg, params, tokens, patch_embeds), "data", None, None)
     for lp in unstack(params["layers"]):
         if cfg.remat:
             x = checkpoint(layer_fwd, cfg, lp, x, use_reentrant=False)
@@ -126,7 +158,7 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
             x = layer_fwd(cfg, lp, x)
     x = x[:, x.shape[1] - tokens.shape[1] :]
     x = _norm_fwd(cfg, params["final_norm"], x)
-    return unembed_fwd(params["embed"], x)
+    return constrain(unembed_fwd(params["embed"], x), "data", None, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +172,11 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
         "k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.cdtype, device=device),
     }
+
+
+def kv_cache_specs(cfg: ArchConfig):
+    kv = P(None, "data", None, "model", None)
+    return {"k": kv, "v": kv}
 
 
 def _cached_layers(cfg, params, x, cache, offset):
@@ -156,7 +193,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, offset):
     x = embed_fwd(params["embed"], tokens, cfg.cdtype)
     x = _cached_layers(cfg, params, x, cache, offset)
     x = _norm_fwd(cfg, params["final_norm"], x)
-    return unembed_fwd(params["embed"], x), cache
+    return constrain(unembed_fwd(params["embed"], x), "data", None, "model"), cache
 
 
 @torch.no_grad()

@@ -30,16 +30,22 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import P, constrain, stacked
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
+    FSDP,
+    TP,
     _init_dense,
     embed_fwd,
+    embedding_specs,
     init_embedding,
+    init_generator,
     init_rmsnorm,
     rmsnorm_fwd,
+    rmsnorm_specs,
     unembed_fwd,
 )
-from repro_torch.models.state import unstack
+from repro_torch.models.state import flatten, unflatten_into, unstack
 
 CHUNK = 128  # chunkwise-parallel block length
 M_INIT = -1e30  # the stabilisers' start
@@ -64,6 +70,21 @@ def init_mlstm_block(gen, cfg: ArchConfig, device=None, leading=()):
         "b_f": torch.full((*leading, H), 3.0, dtype=cfg.pdtype, device=device),
         "w_down": _init_dense(gen, d, d, **kw),
         "norm": torch.ones((*leading, d), dtype=cfg.pdtype, device=device),
+    }
+
+
+def mlstm_block_specs():
+    return {
+        "w_up": P(FSDP, TP),
+        "w_q": P(FSDP, TP),
+        "w_k": P(FSDP, TP),
+        "w_v": P(FSDP, TP),
+        "w_i": P(FSDP, None),
+        "w_f": P(FSDP, None),
+        "b_i": P(None),
+        "b_f": P(None),
+        "w_down": P(TP, FSDP),
+        "norm": P(None),
     }
 
 
@@ -211,6 +232,16 @@ def init_slstm_block(gen, cfg: ArchConfig, device=None, leading=()):
     }
 
 
+def slstm_block_specs():
+    return {
+        "w_x": P(FSDP, TP),
+        "r": P(TP, None, None),
+        "b": P(None),
+        "w_down": P(TP, FSDP),
+        "norm": P(None),
+    }
+
+
 def init_slstm_state(cfg, batch, device=None, leading=()):
     H = cfg.n_heads
     shape = (*leading, batch, H, cfg.d_model // H)
@@ -275,8 +306,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
     not the reference's numbers), every pair leaf stacked ``(n_pairs, ...)``."""
     if cfg.n_layers % 2:
         raise ValueError("the xLSTM config uses (mLSTM, sLSTM) pairs: n_layers must be even")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = init_generator(seed, device)
     lead = (cfg.n_layers // 2,)
     return {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model, cfg.pdtype, device),
@@ -286,6 +316,21 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
         },
         "final_norm": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
     }
+
+
+def param_specs(cfg: ArchConfig):
+    """The reference's logical partition specs of :func:`init_params`' tree."""
+    return {
+        "embed": embedding_specs(),
+        "pairs": stacked({"m": mlstm_block_specs(), "s": slstm_block_specs()}),
+        "final_norm": rmsnorm_specs(),
+    }
+
+
+def kv_cache_specs(cfg: ArchConfig):
+    """Every state leaf ``P(None, "data")``, as the reference's are."""
+    state = init_state(cfg, 1, "meta")
+    return unflatten_into(state, {k: P(None, "data") for k in flatten(state)})
 
 
 def init_state(cfg: ArchConfig, batch: int, device="cuda"):
@@ -329,10 +374,10 @@ def forward(cfg: ArchConfig, params, tokens):
     pad = (-S) % CHUNK
     if pad:
         tokens = F.pad(tokens, (0, pad))
-    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     x = _run(cfg, params, x, init_state(cfg, B, tokens.device), step_mode=False)
     x = rmsnorm_fwd(params["final_norm"], x[:, :S])
-    return unembed_fwd(params["embed"], x)
+    return constrain(unembed_fwd(params["embed"], x), "data", None, "model")
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):

@@ -4,6 +4,9 @@ arithmetic (f32 math, results cast back to each leaf's dtype).
 Unlike the reference's pure functions these update the parameters and
 the moments in place, leaf by leaf, so no second copy of the model or
 its optimizer state is ever alive; each returns the same objects.
+Parameters may be DTensors (a sharded trainer): the moments are then
+DTensors laid out like them, and the gradients must come in the
+parameters' placements.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import P, is_dtensor
 from repro_torch.models.state import flatten, unflatten_into
 
 
@@ -30,25 +34,33 @@ class OptimizerConfig:
 
 
 def init_opt_state(params: Any, cfg: OptimizerConfig) -> Any:
-    """Zero moments shaped like ``params`` (allocated in signSGD mode too,
-    as in the reference) and a step count."""
+    """Zero moments laid out like ``params`` (a DTensor parameter gets
+    DTensor moments; allocated in signSGD mode too, as in the reference)
+    and a step count."""
     dt = getattr(torch, cfg.state_dtype)
     flat = flatten(params)
 
     def zeros():
-        return unflatten_into(
-            params,
-            {k: torch.zeros(p.shape, dtype=dt, device=p.device) for k, p in flat.items()},
-        )
+        return unflatten_into(params, {k: torch.zeros_like(p, dtype=dt) for k, p in flat.items()})
 
     return {"mu": zeros(), "nu": zeros(), "step": 0}
+
+
+def opt_state_specs(param_specs: Any) -> Any:
+    """Optimizer moments shard exactly like their parameters (ZeRO)."""
+    return {"mu": param_specs, "nu": param_specs, "step": P()}
+
+
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(torch.square(g.float()))
+    return s.full_tensor() if is_dtensor(s) else s  # the sum over every shard
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float):
     """Scale ``grads`` in place to a global L2 norm of at most
     ``max_norm``; returns them and the norm before clipping (a 0-d f32
-    tensor)."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    tensor; over every shard of sharded grads)."""
+    gnorm = torch.sqrt(sum(_sum_squares(g) for g in grads))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))

@@ -6,6 +6,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.registry import get_model
 from repro_torch.models.state import flatten
@@ -19,8 +20,15 @@ from repro_torch.train.optimizer import (
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy; logits (B, S, V) f32, labels (B, S)."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    gold = torch.gather(logits, -1, labels[..., None])
+    if is_dtensor(gold):
+        # a gather over vocab-sharded logits is a masked partial sum:
+        # reduce it while it still has the shape its mask was made for
+        from torch.distributed.tensor import Partial, Replicate
+
+        settled = [Replicate() if isinstance(pl, Partial) else pl for pl in gold.placements]
+        gold = gold.redistribute(gold.device_mesh, settled)
+    return torch.mean(logz - gold[..., 0])
 
 
 def make_loss_fn(cfg: ArchConfig) -> Callable:
@@ -38,7 +46,9 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
 def loss_and_grads(loss_fn: Callable, params, batch):
     """The loss (a 0-d tensor) and the gradient of every leaf of
     ``params``, as a list in :func:`~repro_torch.models.state.flatten`
-    order."""
+    order.  A DTensor leaf's gradient comes in that leaf's placements
+    (reduced over the ranks that computed parts of it), and a DTensor
+    loss comes back whole."""
     leaves = list(flatten(params).values())
     for p in leaves:
         if not p.requires_grad:
@@ -46,7 +56,11 @@ def loss_and_grads(loss_fn: Callable, params, batch):
     with torch.enable_grad():
         loss = loss_fn(params, batch)
         grads = list(torch.autograd.grad(loss, leaves))
-    return loss.detach(), grads
+    for i, (p, g) in enumerate(zip(leaves, grads)):
+        if is_dtensor(g) and g.placements != p.placements:
+            grads[i] = g.redistribute(p.device_mesh, p.placements)
+    loss = loss.detach()
+    return (loss.full_tensor() if is_dtensor(loss) else loss), grads
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig) -> Callable:

@@ -50,6 +50,11 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.query.shard" in mods
     assert "repro_torch.models.moe" in mods and "repro_torch.launch.serve" in mods
     assert {"repro_torch.models.xlstm", "repro_torch.models.rglru", "repro_torch.models.encdec"} <= set(mods)
+    assert {
+        "repro_torch.distributed.sharding",
+        "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun",
+    } <= set(mods)
     _import_in_subprocess(mods)
 
 
@@ -62,6 +67,10 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.data",
         "repro_torch.launch.train",
         "repro_torch.launch.serve",
+        "repro_torch.distributed",
+        "repro_torch.distributed.sharding",
+        "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun",
     ],
 )
 def test_the_training_stack_loads_no_jax(mod):

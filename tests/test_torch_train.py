@@ -349,3 +349,41 @@ def test_signsgd_on_the_card_matches_the_cpu(cuda):
         R, W = w.shape
         flips = flips.reshape(R, W, 32).transpose(0, 2, 1).reshape(-1)[: acc.size]
         assert np.all(np.abs(acc[np.nonzero(flips)[0]]) < 1e-6), k
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_trainer_matches_the_unsharded_trainer(cuda, tmp_path):
+    """The signSGD trainer on a one-rank NCCL ("data", "model") mesh and
+    without one, from the same parameters, on the card: a one-rank
+    collective is a copy, so losses and parameters agree to 1e-6 and B5/B6
+    launch once per leaf per step on the sharded run too."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import is_dtensor, shard_tree
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+
+    arch, opt, mode = SIGNSGD
+    init = Trainer(_cfg(arch), TrainerConfig(opt=opt, compress_grads=mode), device="cpu")
+    init_process_group("cuda", init_method=f"file://{tmp_path}/pg")
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        runs = {}
+        for label, m in (("plain", None), ("mesh", mesh)):
+            tr = Trainer(_cfg(arch), TrainerConfig(opt=opt, compress_grads=mode), device=cuda, mesh=m)
+            params = params_from_reference(params_to_reference(init.params), device=cuda)
+            tr.params = shard_tree(params, tr.param_specs, m) if m is not None else params
+            counts = compress_signs.launches
+            losses = tr.train(iter(_port_batches(arch, cuda)), num_steps=STEPS, log_every=0)
+            final = {
+                k: (v.full_tensor() if is_dtensor(v) else v).detach().cpu().numpy()
+                for k, v in flatten(tr.params).items()
+            }
+            runs[label] = (losses, final, compress_signs.launches - counts)
+    finally:
+        dist.destroy_process_group()
+    (l_plain, p_plain, n_plain), (l_mesh, p_mesh, n_mesh) = runs["plain"], runs["mesh"]
+    assert n_plain == n_mesh == 19 * STEPS
+    np.testing.assert_allclose(l_mesh, l_plain, rtol=1e-6)
+    for k, v in p_plain.items():
+        np.testing.assert_allclose(p_mesh[k], v, rtol=0, atol=1e-6, err_msg=k)
+
