@@ -35,7 +35,12 @@ drives the port's three paths on the card:
    run's, its words checked the same way, the memory its init allocates
    equal to ``launch/dryrun.py``'s count, and the dry-run's per-rank
    bytes of starcoder2-3b and granite-8b ``train_4k`` on the 16x16 and
-   2x16x16 meshes against the card's memory;
+   2x16x16 meshes against the card's memory; then the roofline
+   (``roofline_path``): starcoder2-3b's AdamW step counted op by op on
+   meta tensors (``launch/hlo_analysis.py``) and the same step run and
+   counted on the card, the two counts equal, its p50 against the
+   count's bound and its MFU, and one 16x16 ``launch/roofline.py`` cell
+   in its own process;
 
 then votes packed planes of the largest gradient leaf's layout with the
 majority kernel, shows that each path launched its kernels, and prints
@@ -63,6 +68,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2054,11 +2060,152 @@ def dist_train_path(device, cfg, train: dict, card: str | None = None, log=log) 
     if on_card:
         torch.cuda.empty_cache()
     memory = torch.cuda.get_device_properties(0).total_memory if on_card else None
-    cells = [dryrun.run_cell(a, s, mp, device_bytes=memory) for a, s, mp in DRYRUN_CELLS]
+    # bytes only: roofline_path counts a 16x16 cell in its own process
+    cells = [dryrun.run_cell(a, s, mp, device_bytes=memory, roofline=False) for a, s, mp in DRYRUN_CELLS]
     log(json.dumps({"dryrun": [
         {k: c[k] for k in ("arch", "shape", "mesh", "argument_bytes", "bytes_by_group", "device_bytes", "fits")}
         for c in cells
     ], "temp_bytes": None, "why": dryrun.NO_TEMP, "card": card}))
+    return out
+
+
+# -- phase 6c: the roofline count against a measured step -------------------------
+
+ROOFLINE_WARMUP = 2
+ROOFLINE_TIMED = 5
+ROOFLINE_CELL = ("starcoder2-3b", "train_4k")  # one 16x16 cell, in its own process
+ROOFLINE_CELL_TIMEOUT_S = 600
+
+
+def _roofline_args(cfg, device):
+    """The AdamW step the reference's dry-run and roofline count, and its
+    arguments at the smoke's batch: random weights from seed 0 and
+    tokens from ``SEED`` (on meta: shapes only)."""
+    import torch
+
+    from repro_torch.launch.specs import demo_batch
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    opt_cfg = OptimizerConfig(state_dtype=cfg.optimizer_dtype)
+    params = get_model(cfg).init_params(cfg, 0, device)
+    opt = init_opt_state(params, opt_cfg)
+    batch = demo_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device="cpu" if device == "meta" else device)
+    if device == "meta":
+        batch = {
+            "inputs": {k: torch.empty_like(v, device="meta") for k, v in batch["inputs"].items()},
+            "labels": torch.empty_like(batch["labels"], device="meta"),
+        }
+    return make_train_step(cfg, opt_cfg), (params, opt, batch)
+
+
+def roofline_path(device, cfg, card: str | None = None, cell=ROOFLINE_CELL, log=log) -> dict:
+    """``launch/hlo_analysis.py``'s count of ``cfg``'s AdamW
+    ``make_train_step`` at TRAIN_BATCH x TRAIN_SEQ, unsharded, held
+    against the same step on ``device``: counted on meta tensors (after
+    one uncounted call), then ROOFLINE_WARMUP + ROOFLINE_TIMED steps run
+    on the device (host clock around each, synchronized; p50) and one
+    more counted there, whose FLOPs, bytes and op count must equal the
+    meta count (the ops whose counts differ are named).  The bound is the
+    meta count's larger term (989 TFLOP/s bf16, 3.35 TB/s); MFU is
+    ``model_flops`` over p50 x 989 TFLOP/s.  Then ``cell`` runs in its own
+    process (``python -m repro_torch.launch.roofline``, a 16x16 "fake"
+    mesh), which must come out ``ok``.  No B1-B7 kernel launches."""
+    import torch
+
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch.roofline import count_params
+    from repro_torch.models.config import ShapeConfig
+
+    on_card = torch.device(device).type == "cuda"
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+
+    t0 = time.perf_counter()
+    step, args = _roofline_args(cfg, "meta")
+    step(*args)  # the RoPE table's copy, once per device
+    meta = hlo_analysis.count_step(step, args)
+    meta_s = time.perf_counter() - t0
+    del step, args
+
+    step, args = _roofline_args(cfg, device)
+    for _ in range(ROOFLINE_WARMUP):
+        step(*args)
+    step_s = []
+    for _ in range(ROOFLINE_TIMED):
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, _, metrics = step(*args)
+        if on_card:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    loss = float(metrics["loss"])
+    real = hlo_analysis.count_step(step, args)
+    del step, args
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    if (real.flops, real.bytes, real.ops) != (meta.flops, meta.bytes, meta.ops):
+        differ = {
+            op: (meta.by_op.get(op, 0), real.by_op.get(op, 0))
+            for op in set(meta.by_op) | set(real.by_op)
+            if meta.by_op.get(op, 0) != real.by_op.get(op, 0)
+        }
+        raise AssertionError(
+            f"the {device} step counts flops {real.flops}, bytes {real.bytes}, ops {real.ops}; "
+            f"meta {meta.flops}, {meta.bytes}, {meta.ops}; ops (meta, {device}) that differ: {differ}"
+        )
+    launched = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    if launched:
+        raise AssertionError(f"the AdamW step launched Flash-Cosmos kernels: {launched}")
+
+    terms = meta.terms(1)
+    total, active = count_params(cfg)
+    mf = hlo_analysis.model_flops(cfg, ShapeConfig("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train"), total, active)
+    p50 = statistics.median(step_s)
+    out = {
+        "arch": cfg.name,
+        "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "device": str(device),
+        "meta_count_s": meta_s,
+        "flops": meta.flops,
+        "bytes": meta.bytes,
+        "ops": meta.ops,
+        "counts_equal": True,
+        "step_s": step_s,
+        "step_p50_s": p50,
+        "loss": loss,
+        "compute_s": terms.compute_s,
+        "memory_s": terms.memory_s,
+        "dominant": terms.dominant,
+        "bound_s": terms.bound_s,
+        "p50_over_bound": p50 / terms.bound_s,
+        "model_flops": mf,
+        "mfu": mf / (p50 * hlo_analysis.PEAK_FLOPS),
+        "card": card,
+    }
+    log(
+        f"roofline: {cfg.name} AdamW step {TRAIN_BATCH} x {TRAIN_SEQ}, counted on meta and {device} alike "
+        f"(flops {meta.flops}, bytes {meta.bytes}, ops {meta.ops}); p50 {p50 * 1e3:.2f} ms, compute "
+        f"{terms.compute_s * 1e3:.2f} ms, memory {terms.memory_s * 1e3:.2f} ms ({terms.dominant}), "
+        f"p50 / bound {out['p50_over_bound']:.3f}, MFU {out['mfu']:.4f}; {card}"
+    )
+
+    arch, shape = cell
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--arch", arch, "--shape", shape],
+        capture_output=True, text=True, timeout=ROOFLINE_CELL_TIMEOUT_S, env=env,
+    )
+    lines = [line for line in run.stdout.splitlines() if line.startswith("{")]
+    if run.returncode != 0 or len(lines) != 1 or json.loads(lines[0])["status"] != "ok":
+        raise AssertionError(f"roofline cell {cell}: rc {run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    out["cell"] = json.loads(lines[0])
+    out["cell_wall_s"] = time.perf_counter() - t0
+    log(f"roofline cell ({out['cell_wall_s']:.1f} s): {lines[0]}")
     return out
 
 
@@ -2672,6 +2819,11 @@ def main() -> int:
     log(json.dumps({"dist_train_path": dist_train, "card": card_line}))
     log(f"sharded training path: {time.perf_counter() - t0:.1f} s")
     del dist_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(json.dumps({"roofline_path": roofline_path("cuda", get_config(TRAIN_ARCH), card=card_line)}))
+    log(f"roofline path: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     sign_rows = signcomp_report(train["largest_leaf"], train, kind)

@@ -24,6 +24,7 @@ names and sizes only, for dry-runs and tests that need no process group.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any
 
@@ -199,12 +200,34 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+@functools.cache
+def register_strategies() -> None:
+    """Teach DTensor the elementwise ops the models need and it lacks:
+    ``log_sigmoid_backward`` (the xLSTM's forget gates) keeps its input's
+    shards.  Its ``buffer`` is the input's shape on the CPU and empty on
+    CUDA, where it is replicated.  Called once, before the first DTensor
+    is laid out."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.log_sigmoid_backward.default)
+    def _log_sigmoid_backward(grad_output, x, buffer):
+        def buf(pl):
+            return pl if buffer.shape == x.shape else Replicate()
+
+        rep = Replicate()
+        out = [([rep], [rep, rep, rep])]
+        out += [([Shard(d)], [Shard(d), Shard(d), buf(Shard(d))]) for d in range(len(x.shape))]
+        return out
+
+
 def shard_leaf(t: torch.Tensor, spec: P, mesh):
     """``t`` (the full tensor, the same on every rank) as a DTensor laid
     out by its logical ``spec``; each rank keeps its own shard, no data
     moves between ranks."""
     from torch.distributed.tensor import distribute_tensor
 
+    register_strategies()
     pl = placements(sanitize(resolve_spec(spec, mesh), t.shape, mesh), mesh)
     return distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
 
@@ -220,6 +243,49 @@ def shard_tree(tree: Any, spec_tree: Any, mesh) -> Any:
     for k in list(flat):
         out[k] = shard_leaf(flat.pop(k), specs[k], mesh)
     return unflatten_into(tree, out)
+
+
+def lay_out_like(tree: Any, spec_tree: Any, like) -> Any:
+    """A new cache or state ``tree`` (plain tensors of global shape) laid
+    out by ``spec_tree`` on the mesh of ``like`` (the step's input) when
+    that is a DTensor on more than one rank, so that writes into it keep
+    their shards (the reference's jit shards it by propagation);
+    unchanged otherwise."""
+    if not is_dtensor(like) or like.device_mesh.size() == 1:
+        return tree
+    return shard_tree(tree, spec_tree, like.device_mesh)
+
+
+def grad_in_place(t):
+    """``t`` unchanged, but a DTensor's gradient through this use arrives
+    in ``t``'s own placements.  A leaf used twice (the tied embedding:
+    looked up, and unembedded) gets one gradient per use; each in its
+    own layout, their sum can need a redistribution DTensor lacks (a
+    ``Shard`` into a ``Partial`` on torch 2.11), so each use's gradient is
+    laid out like the leaf before they are added."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor
+
+    local = t.to_local(grad_placements=t.placements)
+    return DTensor.from_local(local, t.device_mesh, t.placements, run_check=False, shape=t.shape, stride=t.stride())
+
+
+def split_dim(x, dim: int, sizes: tuple[int, ...]):
+    """``x`` with ``dim`` split into ``sizes`` (``unflatten``).  A DTensor
+    whose shards of ``dim`` would not split evenly (its mesh axes do not
+    divide ``sizes[0]``, e.g. 24 heads on a 16-way model axis) has
+    ``dim`` replicated first: DTensor refuses an uneven split, where GSPMD
+    pads."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        dim = dim % x.dim()
+        ways = math.prod(x.device_mesh.size(i) for i, pl in enumerate(x.placements) if pl.is_shard(dim))
+        if sizes[0] % ways:
+            rep = [Replicate() if pl.is_shard(dim) else pl for pl in x.placements]
+            x = x.redistribute(x.device_mesh, rep)
+    return x.unflatten(dim, sizes)
 
 
 def _names(e) -> tuple:
@@ -264,9 +330,12 @@ def local_map_specs(fn, args, specs, out_specs):
 
 
 def constrain(x, *entries):
-    """Lay ``x`` out by logical ``entries`` (a ``redistribute``); the
-    identity on a plain tensor, outside a mesh and on a one-rank mesh."""
+    """Lay ``x`` out by logical ``entries`` (a ``redistribute``), every
+    axis that does not divide its dim replicated (no shard is ragged);
+    the identity on a plain tensor, outside a mesh and on a one-rank
+    mesh."""
     mesh = current_mesh()
     if mesh is None or mesh.size() == 1 or not is_dtensor(x):
         return x
-    return x.redistribute(x.device_mesh, placements(resolve_spec(P(*entries), mesh), mesh))
+    spec = sanitize(resolve_spec(P(*entries), mesh), x.shape, mesh)
+    return x.redistribute(x.device_mesh, placements(spec, mesh))

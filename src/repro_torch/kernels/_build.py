@@ -141,6 +141,17 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA
+    one (the kernel launches); any other device (a meta tensor) raises,
+    so no launch gets a pointer without memory behind it."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"the kernels take cpu or cuda tensors, got {t.device}")
+
+
 def check_words(t: torch.Tensor, name: str, ndim: int) -> None:
     """Raise unless ``t`` is a contiguous int32 CUDA tensor of ``ndim`` dims."""
     if t.device.type != "cuda":

@@ -131,7 +131,7 @@ def mws_gather(
             f"expected src (S, W) and idx (B, K, N), got {tuple(src.shape)} "
             f"and {tuple(idx.shape)}"
         )
-    if src.device.type == "cpu":
+    if _build.on_cpu(src):
         return mws_gather_ref(
             src, idx, op, outer_or=outer_or, invert=invert, ext=ext, shr=shr
         )

@@ -31,7 +31,7 @@ def mws_count(stack: torch.Tensor, op: BitOp) -> torch.Tensor:
     N, W = stack.shape
     if 32 * W >= 2**31:
         raise ValueError(f"{W} words per row overflow an int32 count")
-    if stack.device.type == "cpu":
+    if _build.on_cpu(stack):
         return mws_count_ref(stack, op)
     _build.check_words(stack, "stack", 2)
     out = torch.zeros((1,), dtype=torch.int64, device=stack.device)

@@ -17,7 +17,7 @@ def popcount(words: torch.Tensor) -> torch.Tensor:
         words = words[None]
     if words.dim() != 2:
         raise ValueError(f"expected (W,) or (R, W) words, got {tuple(words.shape)}")
-    if words.device.type == "cpu":
+    if _build.on_cpu(words):
         out = popcount_ref(words)
         return out[0] if squeeze else out
     _build.check_words(words, "words", 2)

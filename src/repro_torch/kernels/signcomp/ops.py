@@ -52,7 +52,7 @@ def compress_signs(flat: torch.Tensor, *, lanes: int = LANES) -> torch.Tensor:
     """Flat float vector (n,) -> packed (R, lanes) int32 sign planes."""
     _check_flat(flat)
     layout = sign_layout(flat.shape[0], lanes)
-    if flat.device.type == "cpu":
+    if _build.on_cpu(flat):
         return compress_signs_ref(flat, lanes)
     if flat.dtype != torch.float32:
         raise TypeError(f"the pack kernel takes float32, got {flat.dtype}")
@@ -84,7 +84,7 @@ def decompress_signs(
     R, W = words.shape
     if not 0 < n <= R * WORD_BITS * W:
         raise ValueError(f"n={n} outside 1..{R * WORD_BITS * W} for {R}x{W} words")
-    if words.device.type == "cpu":
+    if _build.on_cpu(words):
         return decompress_signs_ref(words, n, dtype)
     _build.check_words(words, "words", 2)
     out = torch.empty((n,), dtype=torch.float32, device=words.device)
@@ -111,7 +111,7 @@ def majority_vote(stacks: torch.Tensor) -> torch.Tensor:
     K, R, W = stacks.shape
     if K < 1:
         raise ValueError("majority of no planes")
-    if stacks.device.type == "cpu":
+    if _build.on_cpu(stacks):
         return majority_ref(stacks)
     _build.check_words(stacks, "stacks", 3)
     if K > MAX_VOTERS:

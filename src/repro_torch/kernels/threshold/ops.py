@@ -27,7 +27,7 @@ def threshold_reduce(
         raise ValueError(f"threshold over {n} rows: 1..{MAX_ROWS} supported")
     if not 1 <= k <= n:
         raise ValueError(f"threshold k={k} outside 1..{n} rows")
-    if x.device.type == "cpu":
+    if _build.on_cpu(x):
         out = threshold_ref(x, k, invert=invert)
         return out[0] if squeeze else out
     _build.check_words(x, "x", 3)

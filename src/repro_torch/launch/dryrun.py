@@ -7,12 +7,14 @@ every argument of the cell's step (train: parameters, optimizer state,
 batch, and with signSGD the error feedback; prefill: parameters, batch;
 decode: parameters, cache, tokens, offset) by its logical spec and gives
 each rank's shard shape and the argument bytes one rank holds, against a
-card's memory.  Nothing is allocated and no process group is needed.
+card's memory.  Nothing is allocated.  Each cell also carries the
+reference's ``roofline`` entry: the step counted on a ``"fake"`` mesh of
+the cell's shape, as ``launch/roofline.py`` counts it
+(``launch/hlo_analysis.py``); ``roofline=False`` skips it.
 
 Eager PyTorch compiles no step, so there is no counterpart of XLA's
-``memory_analysis`` temp bytes or of the HLO roofline: a cell reports
-``temp_bytes: null`` and says why.  Importing this module sets nothing
-global.
+``memory_analysis`` temp bytes: a cell reports ``temp_bytes: null`` and
+says why.  Importing this module sets nothing global.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch starcoder2-3b --shape train_4k
@@ -40,7 +42,7 @@ from repro_torch.distributed.sharding import (
     resolve_spec,
     sanitize,
 )
-from repro_torch.launch.mesh import PRODUCTION_SHAPES
+from repro_torch.launch.mesh import PRODUCTION_SHAPES, fake_mesh
 from repro_torch.launch.specs import (
     decode_input_specs,
     prefill_input_specs,
@@ -134,6 +136,7 @@ def run_cell(
     *,
     device_bytes: int | None = None,
     compress_grads: str = "none",
+    roofline: bool = True,
 ) -> dict:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
@@ -162,6 +165,11 @@ def run_cell(
         "temp_bytes": None,
         "temp_note": NO_TEMP,
     }
+    if roofline:
+        from repro_torch.launch.roofline import cell_terms
+
+        with fake_mesh(*PRODUCTION_SHAPES[multi_pod]) as fake:
+            result["roofline"] = cell_terms(cfg, shape, fake)[0].as_dict()
     return result
 
 

@@ -8,11 +8,14 @@ back from one to the other.
 A process group comes up from ``torchrun``'s environment (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or, run alone, as a
 single rank over a file store in a fresh temporary directory (no port is
-taken).
+taken).  :func:`fake_mesh` brings up a mesh of any size in one process
+over PyTorch's ``"fake"`` backend, whose collectives move nothing: the
+roofline counts a production mesh's per-rank program on it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import tempfile
@@ -88,3 +91,23 @@ def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
     data = min(data, n)
     model = min(model, n // data)
     return _mesh(device_type, (data, model), ("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` over ``prod(shape)`` ranks of the
+    ``"fake"`` backend, this process rank 0; the group is destroyed on
+    exit.  Raises if a process group is already up: it never reuses a
+    group of another backend or size.  The ``FakeStore`` lives in
+    ``torch.testing._internal``; a torch without it fails here."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(f"a {dist.get_backend()} group is up; a fake mesh needs its own process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+    finally:
+        dist.destroy_process_group()

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import P, constrain, stacked
+from repro_torch.distributed.sharding import P, constrain, lay_out_like, stacked
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     FSDP,
@@ -242,6 +242,7 @@ def prefill(cfg: ArchConfig, params, tokens, frames, max_len):
     last position's logits and the cache.  Frames take no cache slot:
     decode offsets count tokens only."""
     cache = init_kv_cache(cfg, tokens.shape[0], max_len, frames.shape[1], tokens.device)
+    cache = lay_out_like(cache, kv_cache_specs(cfg), tokens)
     cache["enc_out"].copy_(encode(cfg, params, frames))
     logits = decode_stack(cfg, params, tokens, cache["enc_out"], cache, 0, last_only=True)
     return logits, cache

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import P, is_dtensor, local_map_specs
+from repro_torch.distributed.sharding import P, grad_in_place, is_dtensor, local_map_specs, split_dim
 
 Params = dict[str, torch.Tensor]
 
@@ -104,7 +104,7 @@ def embedding_specs():
 
 
 def embed_fwd(p, tokens, compute_dtype):
-    table = p["embedding"]
+    table = grad_in_place(p["embedding"])  # tied: unembed_fwd reads it too
     if is_dtensor(table):
         # DTensor cannot look up a table laid out (vocab on model, d on
         # data) with ids sharded on data (GSPMD resolves that conflict, a
@@ -118,12 +118,21 @@ def embed_fwd(p, tokens, compute_dtype):
             if is_dtensor(tokens)
             else DTensor.from_local(tokens, table.device_mesh, rep, run_check=False)
         )
-    return F.embedding(tokens, table).to(compute_dtype)
+    x = F.embedding(tokens, table).to(compute_dtype)
+    if is_dtensor(x):
+        # the vocab-sharded lookup is a masked partial sum: reduce it at
+        # once, while its mask still fits (a later op that re-lays it
+        # out, a concat, cannot, and the mask needs real data)
+        from torch.distributed.tensor import Partial, Replicate
+
+        settled = [Replicate() if isinstance(pl, Partial) else pl for pl in x.placements]
+        x = x.redistribute(x.device_mesh, settled)
+    return x
 
 
 def unembed_fwd(p, x):
     # logits in f32 for loss stability
-    return torch.einsum("bsd,vd->bsv", x.float(), p["embedding"].float())
+    return torch.einsum("bsd,vd->bsv", x.float(), grad_in_place(p["embedding"]).float())
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +333,7 @@ def attention_fwd(
         y = torch.einsum("bsd,dh->bsh", src, w.to(cdt))
         if b is not None:
             y = y + b.to(cdt)
-        return y.reshape(src.shape[0], src.shape[1], nh, hd)
+        return split_dim(y, -1, (nh, hd))
 
     src_kv = x if kv_x is None else kv_x
     q = proj(p["wq"], p.get("bq"), x, n_heads)
@@ -346,7 +355,7 @@ def attention_fwd(
         v = write_cache(cv, v, offset).to(cdt)
 
     group = n_heads // n_kv_heads
-    qg = q.reshape(B, S, n_kv_heads, group, hd)
+    qg = split_dim(q, 2, (n_kv_heads, group))
     is_causal = causal or kv_cache is not None
     use_blockwise = impl == "blockwise" or (impl == "auto" and k.shape[1] >= BLOCKWISE_MIN_KV)
     core = functools.partial(

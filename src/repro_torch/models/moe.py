@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import P, constrain, local_map_specs, stacked
+from repro_torch.distributed.sharding import P, constrain, lay_out_like, local_map_specs, stacked, split_dim
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     _init_dense,
@@ -135,13 +135,21 @@ def _combine(out_buf, gate_vals, eidx, pos, keep):
     return (gathered * w[..., None]).reshape(B, S, k, d).sum(dim=2)
 
 
+def _experts(buf, w_gate, w_up, w_down):
+    """Each expert's SwiGLU FFN over its buffer rows: (B, E, C, d)."""
+    cdt = buf.dtype
+    g = torch.einsum("becd,edf->becf", buf, w_gate.to(cdt))
+    u = torch.einsum("becd,edf->becf", buf, w_up.to(cdt))
+    h = F.silu(g) * u
+    return torch.einsum("becf,efd->becd", h, w_down.to(cdt))
+
+
 def moe_ffn_fwd(p, x, cfg: ArchConfig):
     """x: (B, S, d).  Groups = sequences; capacity per group."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k
     C = max(1, int(math.ceil(m.capacity_factor * S * k / E)))
-    cdt = x.dtype
 
     logits = torch.einsum("bsd,de->bse", x.float(), p["router"])  # (B, S, E) f32
     probs = torch.softmax(logits, dim=-1)
@@ -154,12 +162,13 @@ def moe_ffn_fwd(p, x, cfg: ArchConfig):
     buf, pos, keep = local_map_specs(dispatch, (x, eidx), (row, row), (row, row, row))
     buf = constrain(buf, "data", "model", None, None)
 
-    # expert compute (EP over the model axis)
-    g = torch.einsum("becd,edf->becf", buf, p["w_gate"].to(cdt))
-    u = torch.einsum("becd,edf->becf", buf, p["w_up"].to(cdt))
-    h = F.silu(g) * u
-    out_buf = torch.einsum("becf,efd->becd", h, p["w_down"].to(cdt))
-    out_buf = constrain(out_buf, "data", "model", None, None)
+    # expert compute (EP over the model axis), per row and expert: on
+    # DTensors each rank runs its own (op by op, the batched matmuls leave
+    # local strides DTensor's views cannot take)
+    ep, bec = P("model", None, None), P("data", "model", None, None)
+    out_buf = local_map_specs(
+        _experts, (buf, p["w_gate"], p["w_up"], p["w_down"]), (bec, ep, ep, ep), (bec,)
+    )
 
     out = local_map_specs(_combine, (out_buf, gate_vals, eidx, pos, keep), (row,) * 5, (row,))
 
@@ -235,12 +244,12 @@ def mla_fwd(p, x, cfg: ArchConfig, kv_cache=None, cache_offset=None):
         c_kv = write_cache(cc, c_kv, offset).to(cdt)
         k_pe = write_cache(cp, k_pe, offset).to(cdt)
 
-    q = torch.einsum("bsd,dh->bsh", x, p["w_q"].to(cdt)).reshape(B, S, H, nd + rd)
+    q = split_dim(torch.einsum("bsd,dh->bsh", x, p["w_q"].to(cdt)), -1, (H, nd + rd))
     q_nope, q_pe = q[..., :nd], q[..., nd:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
 
-    k_nope = torch.einsum("btr,rh->bth", c_kv, p["w_uk"].to(cdt)).reshape(B, -1, H, nd)
-    v = torch.einsum("btr,rh->bth", c_kv, p["w_uv"].to(cdt)).reshape(B, -1, H, vd)
+    k_nope = split_dim(torch.einsum("btr,rh->bth", c_kv, p["w_uk"].to(cdt)), -1, (H, nd))
+    v = split_dim(torch.einsum("btr,rh->bth", c_kv, p["w_uv"].to(cdt)), -1, (H, vd))
 
     # per batch row and head: on DTensors each rank runs its own
     heads = P("data", None, "model")
@@ -388,7 +397,7 @@ def _cache_names(cfg):
 
 
 def _cached_forward(cfg: ArchConfig, params, tokens, cache, offset, last_only: bool):
-    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     a, b = (cache[n] for n in _cache_names(cfg))
     for i, (lp, dense) in enumerate(_stacks(params)):
         x = moe_layer_fwd(cfg, lp, x, dense, kv_cache=(a[i], b[i]), cache_offset=offset)
@@ -409,5 +418,5 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, offset):
 def prefill(cfg: ArchConfig, params, tokens, max_len):
     """Run the whole prompt into a new cache; the last position's logits
     (the unembedding runs on that position only) and the cache."""
-    cache = init_kv_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    cache = lay_out_like(init_kv_cache(cfg, tokens.shape[0], max_len, tokens.device), kv_cache_specs(cfg), tokens)
     return _cached_forward(cfg, params, tokens, cache, 0, last_only=True)

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import P, constrain, stacked
+from repro_torch.distributed.sharding import P, constrain, lay_out_like, stacked, split_dim
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     _ACTIVATIONS,
@@ -203,9 +203,9 @@ def _ring_attention_step(p, x, cfg, cache, offset: int):
     W = cache["k"].shape[1]
     positions = torch.full((B, 1), offset, dtype=torch.long, device=x.device)
 
-    q = torch.einsum("bsd,dh->bsh", x, p["wq"].to(cdt)).reshape(B, 1, H, hd)
-    k = torch.einsum("bsd,dh->bsh", x, p["wk"].to(cdt)).reshape(B, 1, KV, hd)
-    v = torch.einsum("bsd,dh->bsh", x, p["wv"].to(cdt)).reshape(B, 1, KV, hd)
+    q = split_dim(torch.einsum("bsd,dh->bsh", x, p["wq"].to(cdt)), -1, (H, hd))
+    k = split_dim(torch.einsum("bsd,dh->bsh", x, p["wk"].to(cdt)), -1, (KV, hd))
+    v = split_dim(torch.einsum("bsd,dh->bsh", x, p["wv"].to(cdt)), -1, (KV, hd))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -215,7 +215,7 @@ def _ring_attention_step(p, x, cfg, cache, offset: int):
     cv[:, slot] = v[:, 0].to(cv.dtype)
     cpos[:, slot] = offset
 
-    qg = q.reshape(B, 1, KV, H // KV, hd)
+    qg = split_dim(q, 2, (KV, H // KV))
     logits = torch.einsum("bsngh,btnh->bngst", qg, ck.to(cdt)) / math.sqrt(hd)
     valid = (cpos >= 0) & (cpos <= offset) & (cpos > offset - W)
     logits = logits.float().masked_fill(
@@ -239,8 +239,8 @@ def _fill_ring_cache(p, h_norm, cfg, cache):
     Wt = min(W, S)
     hh = h_norm[:, S - Wt :]
     pos = torch.arange(S - Wt, S, device=h_norm.device)
-    k = torch.einsum("bsd,dh->bsh", hh, p["wk"].to(cdt)).reshape(B, Wt, KV, hd)
-    v = torch.einsum("bsd,dh->bsh", hh, p["wv"].to(cdt)).reshape(B, Wt, KV, hd)
+    k = split_dim(torch.einsum("bsd,dh->bsh", hh, p["wk"].to(cdt)), -1, (KV, hd))
+    v = split_dim(torch.einsum("bsd,dh->bsh", hh, p["wv"].to(cdt)), -1, (KV, hd))
     k = apply_rope(k, pos[None].expand(B, Wt), cfg.rope_theta)
     slots = pos % W
     cache["k"][:, slots] = k.to(cache["k"].dtype)
@@ -437,8 +437,8 @@ def prefill(cfg: ArchConfig, params, tokens, max_len):
     carries and conv tails fall out of the recurrent blocks, and each
     ring is filled from the last ``W`` positions (everything older is out
     of the window).  Returns the last position's logits and the state."""
-    state = init_state(cfg, tokens.shape[0], max_len, tokens.device)
-    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    state = lay_out_like(init_state(cfg, tokens.shape[0], max_len, tokens.device), kv_cache_specs(cfg), tokens)
+    x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     x = _run(cfg, params, x, state, offset=0, build_cache=True)
     x = rmsnorm_fwd(params["final_norm"], x[:, -1:])
     return unembed_fwd(params["embed"], x), state
@@ -449,7 +449,7 @@ def decode_step(cfg: ArchConfig, params, state, tokens, offset):
     """One token (B, 1) at absolute position ``offset`` (a host int) ->
     (logits (B, 1, vocab), state written in place)."""
     offset = host_offset(offset)
-    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     x = _run(cfg, params, x, state, decode=True, offset=offset)
     x = rmsnorm_fwd(params["final_norm"], x)
     return unembed_fwd(params["embed"], x), state

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import P, constrain, stacked
+from repro_torch.distributed.sharding import P, constrain, lay_out_like, stacked
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     attention_fwd,
@@ -190,7 +190,7 @@ def _cached_layers(cfg, params, x, cache, offset):
 def decode_step(cfg: ArchConfig, params, cache, tokens, offset):
     """One decode step: tokens (B, 1) at absolute cache slot ``offset`` (a
     host int) -> (logits (B, 1, vocab), cache written in place)."""
-    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     x = _cached_layers(cfg, params, x, cache, offset)
     x = _norm_fwd(cfg, params["final_norm"], x)
     return constrain(unembed_fwd(params["embed"], x), "data", None, "model"), cache
@@ -202,8 +202,8 @@ def prefill(cfg: ArchConfig, params, tokens, max_len, patch_embeds=None):
     last position and the cache.  VLM: the patch embeddings occupy the
     first ``num_patch_tokens`` cache slots, so decode offsets are absolute
     cache positions (n_patch + tokens seen)."""
-    cache = init_kv_cache(cfg, tokens.shape[0], max_len, tokens.device)
-    x = _embed(cfg, params, tokens, patch_embeds)
+    cache = lay_out_like(init_kv_cache(cfg, tokens.shape[0], max_len, tokens.device), kv_cache_specs(cfg), tokens)
+    x = constrain(_embed(cfg, params, tokens, patch_embeds), "data", None, None)
     x = _cached_layers(cfg, params, x, cache, 0)
     x = _norm_fwd(cfg, params["final_norm"], x[:, -1:, :])
     return unembed_fwd(params["embed"], x), cache

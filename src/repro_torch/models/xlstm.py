@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import P, constrain, stacked
+from repro_torch.distributed.sharding import P, constrain, lay_out_like, local_map_specs, stacked, split_dim
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     FSDP,
@@ -88,6 +88,12 @@ def mlstm_block_specs():
     }
 
 
+_BSHD = P("data", None, "model", None)  # (B, S, H, hd)
+_BSH = P("data", None, "model")  # (B, S, H) gates, or (B, S, H·hd) heads merged
+_M_STATE = (P("data", "model", None, None), P("data", "model", None), P("data", "model"))  # C, n, m
+_S_STATE = (P("data", "model", None),) * 4  # c, n, m, h
+
+
 def _mlstm_gates(p, xin, H):
     """log input gate (pre-stabiliser) and log forget gate, (B, S, H) f32."""
     cdt = xin.dtype
@@ -97,17 +103,16 @@ def _mlstm_gates(p, xin, H):
 
 
 def _mlstm_qkv(p, xin, H):
-    B, S, d = xin.shape
+    d = xin.shape[-1]
     hd = d // H
     cdt = xin.dtype
     q = torch.einsum("bsd,de->bse", xin, p["w_q"].to(cdt))
     k = torch.einsum("bsd,de->bse", xin, p["w_k"].to(cdt))
     v = torch.einsum("bsd,de->bse", xin, p["w_v"].to(cdt))
-    shp = (B, S, H, hd)
     return (
-        q.reshape(shp).float(),
-        k.reshape(shp).float() / math.sqrt(hd),
-        v.reshape(shp).float(),
+        split_dim(q, -1, (H, hd)).float(),
+        split_dim(k, -1, (H, hd)).float() / math.sqrt(hd),
+        split_dim(v, -1, (H, hd)).float(),
     )
 
 
@@ -198,15 +203,21 @@ def mlstm_block_fwd(p, x, cfg, state, *, step_mode=False):
     H = cfg.n_heads
     q, k, v = _mlstm_qkv(p, xin, H)
     log_i, log_f = _mlstm_gates(p, xin, H)
-    if step_mode:
-        out, state = mlstm_recurrent_step(
-            q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0], state
-        )
-        out = out[:, None]
-    else:
-        out, state = mlstm_chunkwise(q, k, v, log_i, log_f, state)
-    B, S = x.shape[:2]
-    out = out.reshape(B, S, -1).to(cdt) * F.silu(gate)
+
+    def cell(q, k, v, log_i, log_f, C, n, m):
+        if step_mode:
+            h, st = mlstm_recurrent_step(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0], (C, n, m))
+            return (h[:, None].flatten(2), *st)
+        h, st = mlstm_chunkwise(q, k, v, log_i, log_f, (C, n, m))
+        return (h.flatten(2), *st)
+
+    # per batch row and head: on DTensors each rank runs its own (C19);
+    # heads are merged inside, where the backward's split is local
+    out, *state = local_map_specs(
+        cell, (q, k, v, log_i, log_f, *state), (_BSHD,) * 3 + (_BSH,) * 2 + _M_STATE, (_BSH, *_M_STATE)
+    )
+    state = tuple(state)
+    out = out.to(cdt) * F.silu(gate)
     out = torch.einsum("bse,ed->bsd", out, p["w_down"].to(cdt))
     return x + out, state
 
@@ -281,17 +292,30 @@ def slstm_block_fwd(p, x, cfg, state, *, step_mode=False):
     """Returns (x + block(x), new state); the state given is not written.
     Over S tokens this is a loop of S ``slstm_step`` calls."""
     cdt = x.dtype
-    B, S, d = x.shape
+    S, d = x.shape[1:]
     H = cfg.n_heads
     hd = d // H
     hn = rmsnorm_fwd({"scale": p["norm"]}, x)
     pre = torch.einsum("bsd,de->bse", hn, p["w_x"].to(cdt))  # (B, S, 4d)
     r = p["r"].float()  # once, not per token
-    hs = []
-    for t in range(1 if step_mode else S):
-        state = slstm_step(pre[:, t], r, p["b"], state, H, hd)
-        hs.append(state[3])
-    out = torch.stack(hs, dim=1).reshape(B, -1, d).to(cdt)
+
+    def scan(pre, r, b, *state):
+        Bl, _, _, Hl, _ = pre.shape  # this rank's rows and heads
+        hs = []
+        for t in range(1 if step_mode else S):
+            state = slstm_step(pre[:, t].reshape(Bl, -1), r, b.reshape(-1), state, Hl, hd)
+            hs.append(state[3])
+        return (torch.stack(hs, dim=1).flatten(2), *state)
+
+    # per batch row and head: on DTensors each rank runs its own (C19)
+    out, *state = local_map_specs(
+        scan,
+        (split_dim(pre, -1, (4, H, hd)), r, p["b"].reshape(4, H, hd), *state),
+        (P("data", None, None, "model", None), P("model", None, None), P(None, "model", None)) + _S_STATE,
+        (_BSH, *_S_STATE),
+    )
+    state = tuple(state)
+    out = out.to(cdt)
     out = torch.einsum("bse,ed->bsd", out, p["w_down"].to(cdt))
     return x + out, state
 
@@ -375,7 +399,8 @@ def forward(cfg: ArchConfig, params, tokens):
     if pad:
         tokens = F.pad(tokens, (0, pad))
     x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
-    x = _run(cfg, params, x, init_state(cfg, B, tokens.device), step_mode=False)
+    state = lay_out_like(init_state(cfg, B, tokens.device), kv_cache_specs(cfg), tokens)
+    x = _run(cfg, params, x, state, step_mode=False)
     x = rmsnorm_fwd(params["final_norm"], x[:, :S])
     return constrain(unembed_fwd(params["embed"], x), "data", None, "model")
 
@@ -392,8 +417,8 @@ def prefill(cfg: ArchConfig, params, tokens, max_len=None):
     chunkwise, the ragged tail token by token (pad tokens would corrupt
     the state).  Returns the last position's logits and the state."""
     B, S = tokens.shape
-    state = init_state(cfg, B, tokens.device)
-    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    state = lay_out_like(init_state(cfg, B, tokens.device), kv_cache_specs(cfg), tokens)
+    x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     aligned = S - S % CHUNK
     if aligned:
         x_last = _run(cfg, params, x[:, :aligned], state, False, write=True)[:, -1:]
@@ -407,7 +432,7 @@ def prefill(cfg: ArchConfig, params, tokens, max_len=None):
 def decode_step(cfg: ArchConfig, params, state, tokens, offset=None):
     """One token (B, 1) -> (logits (B, 1, vocab), state written in place).
     ``offset`` is ignored: the state holds all the history there is."""
-    x = embed_fwd(params["embed"], tokens, cfg.cdtype)
+    x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     x = _run(cfg, params, x, state, True, write=True)
     x = rmsnorm_fwd(params["final_norm"], x)
     return unembed_fwd(params["embed"], x), state

@@ -54,6 +54,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.distributed.sharding",
         "repro_torch.launch.mesh",
         "repro_torch.launch.dryrun",
+        "repro_torch.launch.hlo_analysis",
+        "repro_torch.launch.roofline",
+        "repro_torch.launch.perf",
     } <= set(mods)
     _import_in_subprocess(mods)
 
@@ -71,6 +74,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.distributed.sharding",
         "repro_torch.launch.mesh",
         "repro_torch.launch.dryrun",
+        "repro_torch.launch.hlo_analysis",
+        "repro_torch.launch.roofline",
+        "repro_torch.launch.perf",
     ],
 )
 def test_the_training_stack_loads_no_jax(mod):

@@ -7,7 +7,9 @@ interpret mode (as ``tests/test_kernel_mws.py`` runs it), on small ragged
 shapes, every op and every k, and check which of B1's two variants
 (streaming, staged) the wrapper picks from a launch's shapes.  The cases
 marked ``cuda`` hold the CUDA kernel itself, each variant of B1 included,
-against its plain version and run only on the card.
+against its plain version and run only on the card.  Every wrapper of
+B1-B7 raises on a tensor that is neither on the CPU nor on the card (a
+meta tensor, as the roofline's counted steps hold).
 Tolerance: none — packed words compare bit for bit on the uint32 view.
 
 The reference (JAX) is imported only by the fixture that needs it, so the
@@ -30,7 +32,9 @@ from repro_torch.kernels.mws import (
     parabit_reduce,
 )
 from repro_torch.kernels.mws.ops import _MAX_GRID_Y, choose_variant, staged_fits
+from repro_torch.kernels.mws_count import mws_count
 from repro_torch.kernels.popcount import popcount, popcount_ref
+from repro_torch.kernels.signcomp import compress_signs, decompress_signs, majority_vote
 from repro_torch.kernels.threshold import threshold_reduce, threshold_ref
 
 OPS = list(BitOp)
@@ -195,6 +199,29 @@ def test_wrappers_reject_bad_arguments():
         mws_gather(x, torch.zeros((1, 1, 1), dtype=torch.int32), BitOp.NAND)
     with pytest.raises(ValueError):
         mws_reduce(x[:0], BitOp.AND)
+
+
+def _meta(*shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+_META_CALLS = {
+    "B1 mws_gather": lambda: mws_gather(_meta(4, 8), _meta(1, 1, 2)),
+    "B2 popcount": lambda: popcount(_meta(2, 8)),
+    "B3 threshold_reduce": lambda: threshold_reduce(_meta(3, 8), 2),
+    "B4 mws_count": lambda: mws_count(_meta(3, 8), BitOp.AND),
+    "B5 compress_signs": lambda: compress_signs(_meta(1000, dtype=torch.float32)),
+    "B6 decompress_signs": lambda: decompress_signs(_meta(1, 512), 1000),
+    "B7 majority_vote": lambda: majority_vote(_meta(3, 1, 512)),
+}
+
+
+@pytest.mark.parametrize("name", list(_META_CALLS))
+def test_every_wrapper_raises_on_a_meta_tensor(name):
+    """Only ``cpu`` (the plain version) and ``cuda`` (the kernel) run: a
+    meta tensor, as the roofline's steps hold, never reaches a launch."""
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        _META_CALLS[name]()
 
 
 # (S, B, K, N, m_ext, m_shr, outer_or[, vec]) -> the variant B1's wrapper launches
