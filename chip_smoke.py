@@ -40,7 +40,11 @@ drives the port's three paths on the card:
    meta tensors (``launch/hlo_analysis.py``) and the same step run and
    counted on the card, the two counts equal, its p50 against the
    count's bound and its MFU, and one 16x16 ``launch/roofline.py`` cell
-   in its own process;
+   in its own process; then the sharded counts on this machine's torch
+   (``sharded_count_path``): every family's reduced train step on a 2x2
+   "fake" mesh splits each matmul line over the 4 ranks, forward and
+   backward, and every reduced roofline cell comes out ``ok``, in
+   processes of ``launch/split.py`` started together;
 
 then votes packed planes of the largest gradient leaf's layout with the
 majority kernel, shows that each path launched its kernels, and prints
@@ -72,6 +76,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1945,8 +1950,6 @@ def dist_train_path(device, cfg, train: dict, card: str | None = None, log=log) 
     dry-run's count (1%), B5/B6 once per leaf per step; then timed steps,
     one profiled step, and the dry-run's per-rank bytes at 16x16 and
     2x16x16."""
-    import tempfile
-
     import torch
     import torch.distributed as dist
 
@@ -2077,29 +2080,6 @@ ROOFLINE_CELL = ("starcoder2-3b", "train_4k")  # one 16x16 cell, in its own proc
 ROOFLINE_CELL_TIMEOUT_S = 600
 
 
-def _roofline_args(cfg, device):
-    """The AdamW step the reference's dry-run and roofline count, and its
-    arguments at the smoke's batch: random weights from seed 0 and
-    tokens from ``SEED`` (on meta: shapes only)."""
-    import torch
-
-    from repro_torch.launch.specs import demo_batch
-    from repro_torch.models.registry import get_model
-    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
-    from repro_torch.train.steps import make_train_step
-
-    opt_cfg = OptimizerConfig(state_dtype=cfg.optimizer_dtype)
-    params = get_model(cfg).init_params(cfg, 0, device)
-    opt = init_opt_state(params, opt_cfg)
-    batch = demo_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device="cpu" if device == "meta" else device)
-    if device == "meta":
-        batch = {
-            "inputs": {k: torch.empty_like(v, device="meta") for k, v in batch["inputs"].items()},
-            "labels": torch.empty_like(batch["labels"], device="meta"),
-        }
-    return make_train_step(cfg, opt_cfg), (params, opt, batch)
-
-
 def roofline_path(device, cfg, card: str | None = None, cell=ROOFLINE_CELL, log=log) -> dict:
     """``launch/hlo_analysis.py``'s count of ``cfg``'s AdamW
     ``make_train_step`` at TRAIN_BATCH x TRAIN_SEQ, unsharded, held
@@ -2114,23 +2094,25 @@ def roofline_path(device, cfg, card: str | None = None, cell=ROOFLINE_CELL, log=
     mesh), which must come out ``ok``.  No B1-B7 kernel launches."""
     import torch
 
+    from repro_torch.kernels import wrappers as kernel_wrappers
     from repro_torch.launch import hlo_analysis
-    from repro_torch.launch.roofline import count_params
+    from repro_torch.launch.roofline import count_params, plain_cell
     from repro_torch.models.config import ShapeConfig
 
+    shape = ShapeConfig("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
     on_card = torch.device(device).type == "cuda"
-    wrappers = _kernel_wrappers()
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
 
     t0 = time.perf_counter()
-    step, args = _roofline_args(cfg, "meta")
+    step, args = plain_cell(cfg, shape, "meta", seed=SEED)
     step(*args)  # the RoPE table's copy, once per device
     meta = hlo_analysis.count_step(step, args)
     meta_s = time.perf_counter() - t0
     del step, args
 
-    step, args = _roofline_args(cfg, device)
+    step, args = plain_cell(cfg, shape, device, seed=SEED)
     for _ in range(ROOFLINE_WARMUP):
         step(*args)
     step_s = []
@@ -2163,7 +2145,7 @@ def roofline_path(device, cfg, card: str | None = None, cell=ROOFLINE_CELL, log=
 
     terms = meta.terms(1)
     total, active = count_params(cfg)
-    mf = hlo_analysis.model_flops(cfg, ShapeConfig("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train"), total, active)
+    mf = hlo_analysis.model_flops(cfg, shape, total, active)
     p50 = statistics.median(step_s)
     out = {
         "arch": cfg.name,
@@ -2196,16 +2178,116 @@ def roofline_path(device, cfg, card: str | None = None, cell=ROOFLINE_CELL, log=
     arch, shape = cell
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
-    run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.roofline", "--arch", arch, "--shape", shape],
-        capture_output=True, text=True, timeout=ROOFLINE_CELL_TIMEOUT_S, env=env,
-    )
+    with tempfile.TemporaryDirectory() as cell_dir:  # the cell's file, not kept
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.roofline", "--arch", arch, "--shape", shape,
+             "--out", cell_dir],
+            capture_output=True, text=True, timeout=ROOFLINE_CELL_TIMEOUT_S, env=env,
+        )
     lines = [line for line in run.stdout.splitlines() if line.startswith("{")]
     if run.returncode != 0 or len(lines) != 1 or json.loads(lines[0])["status"] != "ok":
         raise AssertionError(f"roofline cell {cell}: rc {run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
     out["cell"] = json.loads(lines[0])
     out["cell_wall_s"] = time.perf_counter() - t0
     log(f"roofline cell ({out['cell_wall_s']:.1f} s): {lines[0]}")
+    return out
+
+
+SHARDED_COUNT_PROCS = 3  # counting processes of launch/split.py, started with the gradient check
+SHARDED_COUNT_TIMEOUT_S = 300
+SHARDED_COUNT_MUST_RUN = (("recurrentgemma-2b", "train_4k"), ("recurrentgemma-2b", "prefill_32k"))  # C24
+
+
+def sharded_count_path(card: str | None = None, log=log) -> dict:
+    """``launch/split.py`` on this machine's torch: each family of
+    ``split.FAMILIES`` as a reduced train step on a 2x2 "fake" mesh, rank
+    0's matmul FLOPs x 4 against the unsharded step's per model line
+    (forward and backward) and for the whole step; then every reduced
+    (arch x shape) cell that ``tests/test_torch_roofline_cells.py`` runs.
+    A fake mesh is one per process and ``dist_train_path``'s NCCL group
+    is up in this one, so the jobs run in SHARDED_COUNT_PROCS processes
+    of ``python -m repro_torch.launch.split``, all started together, on
+    meta tensors with no CUDA device visible.  Every family must count
+    excess 0 with no unsplit line, every cell ``ok`` (or skipped by the
+    reference's rule), SHARDED_COUNT_MUST_RUN among the ``ok``.  A fourth
+    process runs each family's loss and gradients on a real 4-rank gloo
+    2x2 mesh (``split.grad_check``): every leaf within the reference's
+    tolerance of the unsharded step's, the loss within 1e-4.  Each
+    process must report 0 launches of every B1-B7 kernel."""
+    import torch
+
+    from repro_torch.launch import split
+    from repro_torch.models.config import SHAPES
+
+    jobs = [("--families", a) for a in split.FAMILIES] + [("--cells", a) for a in split.CELL_ARCHS]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    cmds = []
+    for i in range(SHARDED_COUNT_PROCS):
+        mine = jobs[i::SHARDED_COUNT_PROCS]
+        cmd = [sys.executable, "-m", "repro_torch.launch.split"]
+        for flag in ("--families", "--cells"):
+            cmd += [flag, *(a for f, a in mine if f == flag)]
+        cmds.append(cmd)
+    # the gradients on a real 4-rank gloo mesh, in a process of their own
+    cmds.append([sys.executable, "-m", "repro_torch.launch.split", "--families", "--grads", *split.FAMILIES])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env) for c in cmds]
+    runs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(1.0, SHARDED_COUNT_TIMEOUT_S - (time.perf_counter() - t0)))
+            runs.append((p.args, p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    families, cells, grads, launched, reports = {}, {}, {}, {}, 0
+    for args, rc, out, err in runs:
+        if rc != 0:
+            raise AssertionError(f"{' '.join(args[1:])}: rc {rc}\n{out[-3000:]}\n{err[-4000:]}")
+        for line in out.splitlines():
+            if line.startswith("{"):
+                rec = json.loads(line)
+                if "family" in rec:
+                    families[rec["family"]["arch"]] = rec["family"]
+                elif "grads" in rec:
+                    grads[rec["grads"]["arch"]] = {k: v for k, v in rec["grads"].items() if k != "arch"}
+                elif "launches" in rec:  # each process's own kernel launches
+                    reports += 1
+                    launched.update({k: n for k, n in rec["launches"].items() if n})
+                else:
+                    cells[(rec["cell"]["arch"], rec["cell"]["shape"])] = rec["cell"]["status"]
+    bad = {a: f for a, f in families.items() if f["unsplit"] or any(f["excess"].values())}
+    if set(families) != set(split.FAMILIES) or bad:
+        raise AssertionError(f"families counted {sorted(families)}; not split: {bad}")
+    ok = sorted(f"{a} {s}" for (a, s), st in cells.items() if st == "ok")
+    skipped = sorted(f"{a} {s}" for (a, s), st in cells.items() if st == "skip")
+    if len(ok) + len(skipped) != len(cells) or len(cells) != len(SHAPES) * len(split.CELL_ARCHS):
+        raise AssertionError(f"cells: {cells}")
+    off = {a: g for a, g in grads.items() if not g["worst_over_tol"] <= 1 or abs(g["loss"][0] - g["loss"][1]) > 1e-4}
+    if set(grads) != set(split.FAMILIES) or off:
+        raise AssertionError(f"gradients checked {sorted(grads)}; off: {off}")
+    missing = [c for c in SHARDED_COUNT_MUST_RUN if cells.get(c) != "ok"]
+    if missing:
+        raise AssertionError(f"cells not ok: {missing}")
+    if reports != len(runs) or launched:
+        raise AssertionError(f"the sharded counts launched Flash-Cosmos kernels: {launched} ({reports} reports)")
+    out = {
+        "torch": torch.__version__,
+        "mesh": "2x2",
+        "families": {a: {k: f[k] for k in ("lines", "excess", "unsplit")} for a, f in families.items()},
+        "cells": {"ok": ok, "skipped": skipped},
+        "grads": grads,
+        "procs": len(cmds),
+        "wall_s": time.perf_counter() - t0,
+        "card": card,
+    }
+    log(
+        f"sharded count (torch {torch.__version__}): {len(families)} families split on 2x2, forward and "
+        f"backward, excess 0; {len(ok)} reduced cells ok, {len(skipped)} skipped; gradients on 4 gloo ranks "
+        f"within tolerance (worst {max(g['worst_over_tol'] for g in grads.values()):.4g} of it) ({out['wall_s']:.1f} s)"
+    )
     return out
 
 
@@ -2350,19 +2432,6 @@ SERVE_BF16_TOL = 0.1  # per batch row: RMS(cached - forward) / std(forward)
 # ratios are reported beside.
 SERVE_F32_RATIO_TOL = 3e-3
 SERVE_F32_TOL = 1e-4  # card vs CPU, f32 reduced configs (d), elementwise
-def _kernel_wrappers() -> dict:
-    """Every B1-B7 wrapper, each of which counts its launches."""
-    from repro_torch.kernels.mws import mws_gather
-    from repro_torch.kernels.mws_count import mws_count
-    from repro_torch.kernels.popcount import popcount
-    from repro_torch.kernels.signcomp import compress_signs, decompress_signs, majority_vote
-    from repro_torch.kernels.threshold import threshold_reduce
-
-    fns = (mws_gather, popcount, threshold_reduce, mws_count, compress_signs, decompress_signs,
-           majority_vote)
-    return {fn.__name__: fn for fn in fns}
-
-
 def _serve_inputs(cfg, batch: int, prompt: int, seed: int, device, frames: int = 0):
     """Prompts, the audio family's ``frames`` encoder frames and the VLM's
     patch embeddings from ``seed``, in ``launch/serve.py``'s order (which
@@ -2512,13 +2581,14 @@ def serve_path(device, cfg, batch: int, prompt: int, tokens: int, frames: int = 
     xLSTM also the sLSTM's share of a prefill."""
     import torch
 
+    from repro_torch.kernels import wrappers as kernel_wrappers
     from repro_torch.launch.serve import serve
     from repro_torch.models.registry import get_model
     from repro_torch.models.state import flatten
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
     on_card = torch.device(device).type == "cuda"
-    wrappers = _kernel_wrappers()
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     model = get_model(cfg)
@@ -2824,6 +2894,9 @@ def main() -> int:
     t0 = time.perf_counter()
     log(json.dumps({"roofline_path": roofline_path("cuda", get_config(TRAIN_ARCH), card=card_line)}))
     log(f"roofline path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(json.dumps({"sharded_count": sharded_count_path(card=card_line)}))
+    log(f"sharded count path: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     sign_rows = signcomp_report(train["largest_leaf"], train, kind)

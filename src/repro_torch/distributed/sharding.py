@@ -303,6 +303,7 @@ def local_map_specs(fn, args, specs, out_specs):
     mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
     if mesh is None:
         return fn(*args)
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
     sizes = mesh_axes(mesh)
@@ -320,10 +321,20 @@ def local_map_specs(fn, args, specs, out_specs):
         kept = [tuple(n for n in _names(e) if n not in drop) for e in r]
         return placements(P(*[k if len(k) > 1 else (k[0] if k else None) for k in kept]), mesh)
 
+    in_pl = tuple(keep(r) for r in ins)
+    # an input whole over a mesh axis that another input is split over
+    # (a weight beside data-split rows, the one KV head beside
+    # model-split query heads) gets from each rank only that rank's
+    # share of its gradient: the sum over the axis, not a copy
+    split = {i for pl in in_pl for i, p in enumerate(pl) if p.is_shard()}
+    grad_pl = tuple(
+        tuple(Partial() if i in split and p.is_replicate() else p for i, p in enumerate(pl)) for pl in in_pl
+    )
     return local_map(
         fn,
         out_placements=tuple(keep(r) for r in outs),
-        in_placements=tuple(keep(r) for r in ins),
+        in_placements=in_pl,
+        in_grad_placements=grad_pl,
         device_mesh=mesh,
         redistribute_inputs=True,
     )(*args)
@@ -333,9 +344,11 @@ def constrain(x, *entries):
     """Lay ``x`` out by logical ``entries`` (a ``redistribute``), every
     axis that does not divide its dim replicated (no shard is ragged);
     the identity on a plain tensor, outside a mesh and on a one-rank
-    mesh."""
+    mesh.  As ``with_sharding_constraint``'s transpose does, the gradient
+    through it is laid out the same way (a partial one is reduced here),
+    so the backward matmuls below it split as the forward's do."""
     mesh = current_mesh()
     if mesh is None or mesh.size() == 1 or not is_dtensor(x):
         return x
     spec = sanitize(resolve_spec(P(*entries), mesh), x.shape, mesh)
-    return x.redistribute(x.device_mesh, placements(spec, mesh))
+    return grad_in_place(x.redistribute(x.device_mesh, placements(spec, mesh)))

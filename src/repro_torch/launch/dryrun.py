@@ -18,9 +18,11 @@ says why.  Importing this module sets nothing global.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch starcoder2-3b --shape train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod-only] [--device-bytes N]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod-only] [--device-bytes N] [--out DIR]
 
-Each cell prints one JSON line; nothing is written to disk.
+Each cell prints one JSON line, and each cell that ran is written as
+``<arch>_<shape>_<mesh>.json`` under ``results/torch/dryrun/`` (or
+``--out``), as the reference writes its cells under ``results/dryrun/``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 
 import torch
 
@@ -53,7 +56,18 @@ from repro_torch.models.registry import get_model
 from repro_torch.models.state import flatten
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state, opt_state_specs
 
+RESULTS_ROOT = os.path.join(os.path.dirname(__file__), "../../../results/torch")
+RESULTS_DIR = os.path.join(RESULTS_ROOT, "dryrun")
+
 NO_TEMP = "eager PyTorch compiles no step: no temp-buffer analysis (XLA's memory_analysis)"
+
+
+def save_cell(out_dir: str, name: str, cell) -> None:
+    """``cell`` as ``<out_dir>/<name>.json``, indented as the reference
+    writes its cells."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+        json.dump(cell, f, indent=1)
 
 
 def production_mesh(multi_pod: bool = False) -> AbstractMesh:
@@ -137,6 +151,7 @@ def run_cell(
     device_bytes: int | None = None,
     compress_grads: str = "none",
     roofline: bool = True,
+    out_dir: str | None = None,
 ) -> dict:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
@@ -170,6 +185,8 @@ def run_cell(
 
         with fake_mesh(*PRODUCTION_SHAPES[multi_pod]) as fake:
             result["roofline"] = cell_terms(cfg, shape, fake)[0].as_dict()
+    if out_dir is not None:
+        save_cell(out_dir, f"{arch}_{shape_name}_{result['mesh']}", result)
     return result
 
 
@@ -188,6 +205,7 @@ def main(argv=None):
         default=None,
         help="one card's memory (default: this machine's card, if any)",
     )
+    ap.add_argument("--out", default=RESULTS_DIR, help="where each cell's JSON file goes")
     args = ap.parse_args(argv)
     if not (args.all or args.arch or args.shape):
         ap.error("name --arch and/or --shape, or --all")
@@ -204,7 +222,9 @@ def main(argv=None):
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
-                r = run_cell(arch, shape, mp, device_bytes=device_bytes, compress_grads=compress)
+                r = run_cell(
+                    arch, shape, mp, device_bytes=device_bytes, compress_grads=compress, out_dir=args.out
+                )
                 print(json.dumps(r), flush=True)
 
 

@@ -18,21 +18,25 @@ on fake meshes (``launch/roofline.py``'s method).
    ``*_ref`` pack, majority and unpack, as the reference uses its
    ``*_ref``.
 
-Usage: PYTHONPATH=src python -m repro_torch.launch.perf [--exp yi|kimi|grad|all]
+Usage: PYTHONPATH=src python -m repro_torch.launch.perf [--exp yi|kimi|grad|all] [--out DIR]
 
-Each variant prints one JSON line; nothing is written to disk.
+Each variant prints one JSON line, and each experiment's rows are written
+as ``<exp>.json`` under ``results/torch/perf/`` (or ``--out``), as the
+reference writes them under ``results/perf/``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.signcomp.ref import majority_ref, pack_signs_ref, unpack_signs_ref
+from repro_torch.launch.dryrun import RESULTS_ROOT, save_cell
 from repro_torch.launch.hlo_analysis import roofline_from_count
 from repro_torch.launch.mesh import PRODUCTION_SHAPES, fake_mesh
 from repro_torch.launch.roofline import cell_terms
@@ -40,6 +44,7 @@ from repro_torch.models.config import SHAPES
 
 GRAD_PARAMS = 3_030_000_000  # starcoder2-3b-sized
 LANES = 512
+RESULTS_DIR = os.path.join(RESULTS_ROOT, "perf")
 
 
 def _rows(exp: str, variants, shape: str, mesh) -> list[dict]:
@@ -118,23 +123,27 @@ def exp_grad_exchange(mesh, n_params: int = GRAD_PARAMS) -> list[dict]:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--exp", choices=["yi", "kimi", "grad", "all"], default="all")
+    ap.add_argument("--out", default=RESULTS_DIR, help="where each experiment's JSON file goes")
     args = ap.parse_args(argv)
     t0 = time.time()
 
     def emit(rows):
         for r in rows:
             print(json.dumps(r), flush=True)
+        return rows
 
+    grad = []
     with fake_mesh(*PRODUCTION_SHAPES[False]) as mesh:
         if args.exp in ("yi", "all"):
-            emit(exp_yi_prefill(mesh))
+            save_cell(args.out, "yi34b_prefill32k", emit(exp_yi_prefill(mesh)))
         if args.exp in ("kimi", "all"):
-            emit(exp_kimi_train(mesh))
+            save_cell(args.out, "kimi_train4k", emit(exp_kimi_train(mesh)))
         if args.exp in ("grad", "all"):
-            emit(exp_grad_exchange(mesh))
+            grad += emit(exp_grad_exchange(mesh))
     if args.exp in ("grad", "all"):
         with fake_mesh(*PRODUCTION_SHAPES[True]) as mesh:
-            emit(exp_grad_exchange(mesh))
+            grad += emit(exp_grad_exchange(mesh))
+        save_cell(args.out, "grad_exchange", grad)
     print(json.dumps({"done_s": round(time.time() - t0, 1)}), flush=True)
 
 

@@ -20,9 +20,11 @@ chunks) and extrapolated affinely in S with the reference's
 term is affine in S, so this is exact; eager counts carry no fusion
 noise, so the reference's proportional fallback is not needed.
 
-Usage: PYTHONPATH=src python -m repro_torch.launch.roofline [--arch A] [--shape S]
+Usage: PYTHONPATH=src python -m repro_torch.launch.roofline [--arch A] [--shape S] [--out DIR]
 
-Each cell prints one JSON line; nothing is written to disk.
+Each cell prints one JSON line, and each ``ok`` cell is written as
+``<arch>_<shape>.json`` under ``results/torch/roofline/`` (or ``--out``),
+as the reference writes its cells under ``results/roofline/``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import time
 import traceback
 
@@ -38,17 +41,19 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.distributed.sharding import active_mesh, placements, register_strategies
-from repro_torch.launch.dryrun import build_cell, cell_is_skipped
+from repro_torch.launch.dryrun import RESULTS_ROOT, build_cell, cell_is_skipped, save_cell
 from repro_torch.launch.hlo_analysis import RooflineTerms, model_flops, roofline_from_count
 from repro_torch.launch.mesh import PRODUCTION_SHAPES, fake_mesh
+from repro_torch.launch.specs import demo_batch
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
 from repro_torch.models.registry import get_model
 from repro_torch.models.state import flatten, unflatten_into
 from repro_torch.models.xlstm import CHUNK
-from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.steps import make_decode_step, make_prefill_step, make_train_step
 
 SEQ_UNITS = (CHUNK, 2 * CHUNK)  # the xLSTM's two counted lengths
+RESULTS_DIR = os.path.join(RESULTS_ROOT, "roofline")
 
 
 def count_params(cfg: ArchConfig) -> tuple[int, int]:
@@ -113,6 +118,23 @@ def layout_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
     return step, (laid["params"], laid["cache"], laid["tokens"], shape.seq_len - 1)
 
 
+def plain_cell(cfg: ArchConfig, shape: ShapeConfig, device="meta", seed: int = 0):
+    """``(step, (params, opt, batch))``: a train cell's AdamW step off any
+    mesh, the counterpart of :func:`layout_cell`, on ``device`` (random
+    weights from seed 0, tokens from ``seed``; on meta, shapes only)."""
+    opt_cfg = OptimizerConfig(state_dtype=cfg.optimizer_dtype)
+    params = get_model(cfg).init_params(cfg, 0, device)
+    batch = demo_batch(
+        cfg, shape.global_batch, shape.seq_len, seed=seed, device="cpu" if device == "meta" else device
+    )
+    if device == "meta":
+        batch = {
+            "inputs": {k: torch.empty_like(v, device="meta") for k, v in batch["inputs"].items()},
+            "labels": torch.empty_like(batch["labels"], device="meta"),
+        }
+    return make_train_step(cfg, opt_cfg), (params, init_opt_state(params, opt_cfg), batch)
+
+
 def count_cell(cfg: ArchConfig, shape: ShapeConfig, mesh) -> RooflineTerms:
     """One step of the cell counted on ``mesh``, globalized over its ranks."""
     from torch.distributed.tensor.experimental import implicit_replication
@@ -156,9 +178,13 @@ def cell_terms(cfg: ArchConfig, shape: ShapeConfig, mesh) -> tuple[RooflineTerms
     return _extrapolate(t1, t2, shape.seq_len / SEQ_UNITS[0]), note
 
 
-def run_cell(arch: str, shape_name: str, *, cfg: ArchConfig | None = None, mesh=None) -> dict:
+def run_cell(
+    arch: str, shape_name: str, *, cfg: ArchConfig | None = None, mesh=None, out_dir: str | None = None
+) -> dict:
     """One cell on ``mesh`` (default: a fake 16x16 mesh brought up and
-    torn down here); ``cfg`` overrides the arch's published config."""
+    torn down here); ``cfg`` overrides the arch's published config.  An
+    ``ok`` cell is written as ``<out_dir>/<arch>_<shape>.json`` when
+    ``out_dir`` is given."""
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
     skip = cell_is_skipped(cfg, shape)
@@ -174,7 +200,7 @@ def run_cell(arch: str, shape_name: str, *, cfg: ArchConfig | None = None, mesh=
         mesh_name = "x".join(map(str, mesh.shape))
     total_p, active_p = count_params(cfg)
     mf = model_flops(cfg, shape, total_p, active_p)
-    return {
+    result = {
         "arch": arch,
         "shape": shape_name,
         "mesh": mesh_name,
@@ -188,12 +214,16 @@ def run_cell(arch: str, shape_name: str, *, cfg: ArchConfig | None = None, mesh=
         "useful_ratio": mf / terms.flops if terms.flops else None,
         "roofline": terms.as_dict(),
     }
+    if out_dir is not None:
+        save_cell(out_dir, f"{arch}_{shape_name}", result)
+    return result
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--out", default=RESULTS_DIR, help="where each cell's JSON file goes")
     args = ap.parse_args(argv)
     archs = [args.arch] if args.arch else ARCH_IDS
     shapes = [args.shape] if args.shape else list(SHAPES)
@@ -201,7 +231,7 @@ def main(argv=None):
     for arch in archs:
         for shape in shapes:
             try:
-                r = run_cell(arch, shape)
+                r = run_cell(arch, shape, out_dir=args.out)
             except Exception as e:  # a failing cell is a bug: report it, go on
                 traceback.print_exc()
                 r = {"arch": arch, "shape": shape, "status": "FAIL", "reason": f"{type(e).__name__}: {e}"}

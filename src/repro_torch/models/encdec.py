@@ -139,7 +139,9 @@ def _enc_layer(cfg, lp, h):
     h = h + attention_fwd(
         lp["attn"], a, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, use_rope=False, causal=False
     )
-    m = layernorm_fwd(lp["norm2"], h)
+    # the attention's output arrives partial over "model": the MLP's input
+    # on "data", whole (the decoder's cross-attention's and MLP's too, C23)
+    m = constrain(layernorm_fwd(lp["norm2"], h), "data", None, None)
     return constrain(h + mlp_fwd(lp["mlp"], m, "gelu"), "data", None, None)
 
 
@@ -167,7 +169,7 @@ def _dec_layer(cfg, lp, x, enc_out, kv_cache=None, cache_offset=None):
         kv_cache=kv_cache,
         cache_offset=cache_offset,
     )
-    c = layernorm_fwd(lp["norm2"], x)
+    c = constrain(layernorm_fwd(lp["norm2"], x), "data", None, None)
     x = x + attention_fwd(
         lp["cross"],
         c,
@@ -177,7 +179,7 @@ def _dec_layer(cfg, lp, x, enc_out, kv_cache=None, cache_offset=None):
         causal=False,
         kv_x=enc_out,
     )
-    m = layernorm_fwd(lp["norm3"], x)
+    m = constrain(layernorm_fwd(lp["norm3"], x), "data", None, None)
     return constrain(x + mlp_fwd(lp["mlp"], m, "gelu"), "data", None, None)
 
 

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import P, grad_in_place, is_dtensor, local_map_specs, split_dim
+from repro_torch.distributed.sharding import P, constrain, grad_in_place, is_dtensor, local_map_specs, split_dim
 
 Params = dict[str, torch.Tensor]
 
@@ -370,8 +370,14 @@ def attention_fwd(
     # batch dim into a model-sharded head dim, a strided layout whose
     # redistribution plans take seconds to search)
     heads = P("data", None, "model")
-    out = local_map_specs(core, (qg, k, v), (heads,) * 3, (heads,))
-    out = torch.einsum("bsh,hd->bsd", out, p["wo"].to(cdt))
+    if n_kv_heads == 1:  # MQA: every rank reads the one KV head and runs its own query heads
+        specs = (P("data", None, None, "model"), P("data"), P("data"))
+    else:
+        specs = (heads,) * 3
+    out = local_map_specs(core, (qg, k, v), specs, (heads,))
+    # the heads on "model" even where the core ran them whole (heads the
+    # axis does not divide, C20), as the output projection's rows are
+    out = torch.einsum("bsh,hd->bsd", constrain(out, "data", None, "model"), p["wo"].to(cdt))
     if p.get("bo") is not None:
         out = out + p["bo"].to(cdt)
     return out

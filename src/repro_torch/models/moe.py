@@ -87,6 +87,14 @@ def moe_ffn_specs(cfg: ArchConfig):
     return s
 
 
+def one_hot(ids, n: int):
+    """``jax.nn.one_hot(ids, n, dtype=int32)``: (..., n) int32.  A
+    comparison with an ``arange`` lowers alike on every device, where
+    ``F.one_hot`` checks its range on the CPU and not on meta (ROADMAP
+    C21)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(torch.int32)
+
+
 def _dispatch(x, eidx, *, E: int, C: int, mode: str):
     """The (B, E, C, d) expert buffer of one group (sequence) per row of
     ``x``, and each assignment's slot ``pos`` (B, S*k) and ``keep`` flag."""
@@ -96,8 +104,7 @@ def _dispatch(x, eidx, *, E: int, C: int, mode: str):
     # position-in-expert within each group: cumulative count over the S*k
     # assignments in order
     flat_e = eidx.reshape(B, S * k)
-    one_hot = F.one_hot(flat_e, E).to(torch.int32)  # (B, S*k, E)
-    pos = torch.cumsum(one_hot, dim=1, dtype=torch.int32) - 1  # count before + self
+    pos = torch.cumsum(one_hot(flat_e, E), dim=1, dtype=torch.int32) - 1  # count before + self
     pos = torch.gather(pos, -1, flat_e[..., None])[..., 0].long()
     keep = pos < C  # capacity drop (B, S*k)
 
@@ -151,7 +158,8 @@ def moe_ffn_fwd(p, x, cfg: ArchConfig):
     E, k = m.num_experts, m.top_k
     C = max(1, int(math.ceil(m.capacity_factor * S * k / E)))
 
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])  # (B, S, E) f32
+    # (B, S, E) f32, whole over "model" before the softmax (as mla_fwd's ckv_pe)
+    logits = constrain(torch.einsum("bsd,de->bse", x.float(), p["router"]), "data", None, None)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, eidx = torch.topk(probs, k, dim=-1)  # (B, S, k), descending
     gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
@@ -234,7 +242,9 @@ def mla_fwd(p, x, cfg: ArchConfig, kv_cache=None, cache_offset=None):
     offset = 0 if cache_offset is None else host_offset(cache_offset)
     positions = (torch.arange(S, device=x.device) + offset)[None, :].expand(B, S)
 
-    ckv_pe = torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(cdt))
+    # whole over "model" before it is sliced: the slices' gradient then
+    # comes back split as the matmul's output was (ROADMAP C23)
+    ckv_pe = constrain(torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(cdt)), "data", None, None)
     c_kv, k_pe = ckv_pe[..., :r], ckv_pe[..., r:]
     c_kv = rmsnorm_fwd({"scale": p["kv_norm"]}, c_kv)
     k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
@@ -324,7 +334,8 @@ def moe_layer_specs(cfg: ArchConfig, dense: bool):
 
 def moe_layer_fwd(cfg, lp, x, dense: bool, kv_cache=None, cache_offset=None):
     h = rmsnorm_fwd(lp["norm1"], x)
-    x = x + _attn_fwd(cfg, lp["attn"], h, kv_cache, cache_offset)
+    # the residual on "data", whole over "model" (as in transformer.layer_fwd)
+    x = constrain(x + _attn_fwd(cfg, lp["attn"], h, kv_cache, cache_offset), "data", None, None)
     h = rmsnorm_fwd(lp["norm2"], x)
     if dense:
         x = x + mlp_fwd(lp["ffn"], h, cfg.activation)

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import P, constrain, lay_out_like, stacked, split_dim
+from repro_torch.distributed.sharding import P, constrain, lay_out_like, local_map_specs, stacked, split_dim
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     _ACTIVATIONS,
@@ -106,8 +106,13 @@ def _rglru(p, u, h0):
         return _rglru_scan(a, gated, h0)
     pad = (-S) % RGLRU_CHUNK
     if pad:  # identity steps (a = 1, b = 0): the state passes through
-        a = F.pad(a, (0, 0, 0, pad), value=1.0)
-        gated = F.pad(gated, (0, 0, 0, pad))
+
+        def identity_steps(a, gated):
+            return F.pad(a, (0, 0, 0, pad), value=1.0), F.pad(gated, (0, 0, 0, pad))
+
+        # on DTensors each rank pads its own rows and channels (C24)
+        ch = P("data", None, "model")
+        a, gated = local_map_specs(identity_steps, (a, gated), (ch, ch), (ch, ch))
     h, ys = h0, []
     for c0 in range(0, S + pad, RGLRU_CHUNK):
         y, h = _rglru_scan(a[:, c0 : c0 + RGLRU_CHUNK], gated[:, c0 : c0 + RGLRU_CHUNK], h)
@@ -132,6 +137,19 @@ def _rglru_scan(a, gated, h0):
     return Bv[:, 1:], Bv[:, -1]
 
 
+def _causal_conv(u, w, conv_state=None):
+    """The causal depthwise conv of ``u`` (B, S, dr) with ``w`` (cw, dr),
+    from ``conv_state`` (B, cw-1, dr; zeros when None); returns the conv
+    and its last cw-1 inputs, the next state."""
+    cw, S = w.shape[0], u.shape[1]
+    if conv_state is None:
+        upad = F.pad(u, (0, 0, cw - 1, 0))
+    else:
+        upad = torch.cat([conv_state.to(u.dtype), u], dim=1)
+    conv = sum(upad[:, i : i + S, :] * w[i].to(u.dtype) for i in range(cw))
+    return conv, upad[:, upad.shape[1] - (cw - 1) :, :]
+
+
 def recurrent_block_fwd(p, x, cfg, h0, conv_state=None):
     """Returns (out, (h_last, new conv state)).  ``conv_state``: (B, cw-1,
     dr), the last cw-1 conv inputs (decode); None starts from zeros.
@@ -142,19 +160,20 @@ def recurrent_block_fwd(p, x, cfg, h0, conv_state=None):
     gate = _ACTIVATIONS["gelu"](torch.einsum("bsd,de->bse", xn, p["w_gate"].to(cdt)))
     u = torch.einsum("bsd,de->bse", xn, p["w_rec"].to(cdt))
 
-    # causal depthwise conv (width cw); the last cw-1 inputs carry to decode
-    if conv_state is None:
-        upad = F.pad(u, (0, 0, cw - 1, 0))
-    else:
-        upad = torch.cat([conv_state.to(cdt), u], dim=1)
-    new_conv_state = upad[:, -(cw - 1) :, :] if cw > 1 else None
-    S = u.shape[1]
-    conv = sum(upad[:, i : i + S, :] * p["conv"][i].to(cdt) for i in range(cw))
+    # causal depthwise conv (width cw) along S, which is never sharded: on
+    # DTensors each rank convolves its own rows and channels (DTensor's
+    # pad fails on torch 2.11, ROADMAP C24)
+    ch = P("data", None, "model")
+    args, specs = (u, p["conv"]), (ch, P(None, "model"))
+    if conv_state is not None:
+        args, specs = (*args, conv_state), (*specs, ch)
+    conv, tail = local_map_specs(_causal_conv, args, specs, (ch, ch))
+    new_conv_state = tail if cw > 1 else None
 
     y, h_last = _rglru(p, conv.float(), h0)
     out = y.to(cdt) * gate
     out = torch.einsum("bse,ed->bsd", out, p["w_down"].to(cdt))
-    return x + out, (h_last, new_conv_state)
+    return constrain(x + out, "data", None, None), (h_last, new_conv_state)
 
 
 # ---------------------------------------------------------------------------
@@ -229,8 +248,9 @@ def _ring_attention_step(p, x, cfg, cache, offset: int):
 def _fill_ring_cache(p, h_norm, cfg, cache):
     """Write the ring cache from a parallel pass's last min(W, S) positions,
     in place: h_norm (B, S, d) is the attention block's normed input;
-    position t lands in slot t % W.  Those slots are distinct, so plain
-    index assignment is exact."""
+    position t lands in slot t % W.  Those slots are distinct and run on
+    from the first one, wrapping at W once at most: two slice writes
+    (DTensor on torch 2.11 has no index_put_ with a slot tensor)."""
     cdt = h_norm.dtype
     B, S, d = h_norm.shape
     KV = cfg.n_kv_heads
@@ -242,10 +262,12 @@ def _fill_ring_cache(p, h_norm, cfg, cache):
     k = split_dim(torch.einsum("bsd,dh->bsh", hh, p["wk"].to(cdt)), -1, (KV, hd))
     v = split_dim(torch.einsum("bsd,dh->bsh", hh, p["wv"].to(cdt)), -1, (KV, hd))
     k = apply_rope(k, pos[None].expand(B, Wt), cfg.rope_theta)
-    slots = pos % W
-    cache["k"][:, slots] = k.to(cache["k"].dtype)
-    cache["v"][:, slots] = v.to(cache["v"].dtype)
-    cache["pos"][:, slots] = pos.to(torch.int32)
+    first = (S - Wt) % W
+    n = min(Wt, W - first)  # up to the ring's end, the rest from slot 0
+    for name, src in (("k", k), ("v", v), ("pos", pos.to(torch.int32)[None].expand(B, Wt))):
+        dst = cache[name]
+        dst[:, first : first + n] = src[:, :n].to(dst.dtype)
+        dst[:, : Wt - n] = src[:, n:].to(dst.dtype)
 
 
 def attention_block_fwd(p, x, cfg, cache=None, offset=None, build_cache=False):
@@ -265,7 +287,7 @@ def attention_block_fwd(p, x, cfg, cache=None, offset=None, build_cache=False):
         )
         if build_cache:
             _fill_ring_cache(p["attn"], h, cfg, cache)
-        return x + out
+        return constrain(x + out, "data", None, None)
     return x + _ring_attention_step(p["attn"], h, cfg, cache, offset)
 
 
@@ -351,7 +373,8 @@ def kv_cache_specs(cfg: ArchConfig):
 
 
 def _mlp_res(norm_p, mlp_p, x):
-    return x + mlp_fwd(mlp_p, rmsnorm_fwd(norm_p, x), "gelu")
+    # every block's residual on "data", whole over "model" (ROADMAP C23)
+    return constrain(x + mlp_fwd(mlp_p, rmsnorm_fwd(norm_p, x), "gelu"), "data", None, None)
 
 
 def _triple_fwd(cfg, tp, x, state, decode=False, offset=None, build_cache=False):

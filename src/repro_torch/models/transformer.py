@@ -75,7 +75,12 @@ def layer_fwd(cfg: ArchConfig, lp, x, *, kv_cache=None, cache_offset=None, windo
         cache_offset=cache_offset,
         impl=cfg.attention_impl,
     )
+    # the attention's output arrives partial over "model": the residual
+    # and the MLP's input on "data", whole, so the MLP splits over both
+    # axes, forward and backward (ROADMAP C23)
+    x = constrain(x, "data", None, None)
     h = _norm_fwd(cfg, lp["norm2"], x)
+    h = constrain(h, "data", None, None)
     x = x + mlp_fwd(lp["mlp"], h, cfg.activation)
     return constrain(x, "data", None, None)
 

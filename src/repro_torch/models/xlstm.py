@@ -199,7 +199,9 @@ def mlstm_block_fwd(p, x, cfg, state, *, step_mode=False):
     cdt = x.dtype
     h = rmsnorm_fwd({"scale": p["norm"]}, x)
     up = torch.einsum("bsd,de->bse", h, p["w_up"].to(cdt))
-    xin, gate = up.chunk(2, dim=-1)
+    # whole over "model" before it is split: the halves' gradient then
+    # comes back split as the matmul's output was (ROADMAP C23)
+    xin, gate = constrain(up, "data", None, None).chunk(2, dim=-1)
     H = cfg.n_heads
     q, k, v = _mlstm_qkv(p, xin, H)
     log_i, log_f = _mlstm_gates(p, xin, H)
@@ -366,9 +368,11 @@ def init_state(cfg: ArchConfig, batch: int, device="cuda"):
 
 
 def _pair_fwd(cfg, lp, x, mst, sst, step_mode):
+    # each block's output arrives partial over "model": the residual on
+    # "data", whole, before the next block (ROADMAP C23)
     x, mst = mlstm_block_fwd(lp["m"], x, cfg, mst, step_mode=step_mode)
-    x, sst = slstm_block_fwd(lp["s"], x, cfg, sst, step_mode=step_mode)
-    return x, mst, sst
+    x, sst = slstm_block_fwd(lp["s"], constrain(x, "data", None, None), cfg, sst, step_mode=step_mode)
+    return constrain(x, "data", None, None), mst, sst
 
 
 def _run(cfg, params, x, state, step_mode, write=False):
@@ -396,8 +400,8 @@ def forward(cfg: ArchConfig, params, tokens):
     positions come after every real one, so they change no real logit."""
     B, S = tokens.shape
     pad = (-S) % CHUNK
-    if pad:
-        tokens = F.pad(tokens, (0, pad))
+    if pad:  # on DTensors each rank pads its own rows (DTensor's pad fails on torch 2.11, C24)
+        tokens = local_map_specs(lambda t: F.pad(t, (0, pad)), (tokens,), (P("data"),), (P("data"),))
     x = constrain(embed_fwd(params["embed"], tokens, cfg.cdtype), "data", None, None)
     state = lay_out_like(init_state(cfg, B, tokens.device), kv_cache_specs(cfg), tokens)
     x = _run(cfg, params, x, state, step_mode=False)

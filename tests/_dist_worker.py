@@ -18,7 +18,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
-ARCHS = ("granite-8b", "starcoder2-3b", "deepseek-v2-lite-16b")
+# one per family: dense (two), MoE + MLA, RG-LRU hybrid, xLSTM, encoder-decoder
+ARCHS = ("granite-8b", "starcoder2-3b", "deepseek-v2-lite-16b", "recurrentgemma-2b", "xlstm-350m", "whisper-medium")
 
 
 def cfg_of(arch: str):
@@ -52,11 +53,11 @@ def _trainer(cfg, opt, compress, params_np, mesh, ckpt_dir=None):
     return tr
 
 
-def _batch(b):
-    return {
-        "inputs": {"tokens": torch.from_numpy(b["tokens"])},
-        "labels": torch.from_numpy(b["labels"]),
-    }
+def _batch(b, cfg):
+    inputs = {"tokens": torch.from_numpy(b["tokens"])}
+    if "frames" in b:  # the audio family's encoder frames
+        inputs["frames"] = torch.from_numpy(b["frames"]).to(cfg.cdtype)
+    return {"inputs": inputs, "labels": torch.from_numpy(b["labels"])}
 
 
 def _losses_and_grads(inp, mesh, out):
@@ -71,14 +72,13 @@ def _losses_and_grads(inp, mesh, out):
         cfg = cfg_of(arch)
         tr = _trainer(cfg, OptimizerConfig(), "none", inp[arch]["params"], mesh)
         with active_mesh(mesh), implicit_replication():
-            batch = tr.shard_batch(_batch(inp[arch]["batch"]))
+            batch = tr.shard_batch(_batch(inp[arch]["batch"], cfg))
             loss, grads = loss_and_grads(make_loss_fn(cfg), tr.params, batch)
         out[f"{arch}/loss"] = float(loss)
         out[f"{arch}/placements_match"] = all(
             g.placements == p.placements for g, p in zip(grads, flatten(tr.params).values())
         )
-        if arch == "starcoder2-3b":
-            out[f"{arch}/grads"] = {k: _full(g) for k, g in zip(flatten(tr.params), grads)}
+        out[f"{arch}/grads"] = {k: _full(g) for k, g in zip(flatten(tr.params), grads)}
 
 
 def _steps(inp, mesh, ckpt_dir, out):
@@ -117,7 +117,7 @@ def _steps(inp, mesh, ckpt_dir, out):
             tr.leaf_hook = hook if compress == "signsgd" else None
             # train() ends with a blocking save when there is a ckpt_dir:
             # every rank gathers, rank 0 writes
-            res[f"{label}/loss"] = tr.train(iter([_batch(inp[arch]["batch"])]), 1, log_every=0)[0]
+            res[f"{label}/loss"] = tr.train(iter([_batch(inp[arch]["batch"], cfg)]), 1, log_every=0)[0]
             res[f"{label}/params"] = {k: _full(v) for k, v in flatten(tr.params).items()}
             res[f"{label}/leaves"] = seen
             if name == "signsgd" and label == "sharded":

@@ -84,9 +84,9 @@ def test_the_error_feedback_adds_one_f32_copy_of_the_parameters():
     assert sign["argument_bytes"] == base["argument_bytes"] + ef
 
 
-def test_cli_prints_one_json_line_per_cell(capsys):
+def test_cli_prints_one_json_line_per_cell(capsys, tmp_path):
     before = dict(os.environ)
-    dryrun.main(["--arch", "xlstm-350m", "--shape", "long_500k", "--device-bytes", "1"])
+    dryrun.main(["--arch", "xlstm-350m", "--shape", "long_500k", "--device-bytes", "1", "--out", str(tmp_path)])
     lines = capsys.readouterr().out.strip().splitlines()
     cells = [json.loads(line) for line in lines]
     assert [c["mesh"] for c in cells] == ["16x16", "2x16x16"]

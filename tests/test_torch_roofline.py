@@ -10,9 +10,13 @@ checks are on what both must share:
   gives for an HLO line with the same result type;
 * a step counted on meta tensors equals the same step counted on CPU
   tensors (FLOPs, bytes, ops, op by op), each after one uncounted call
-  (the RoPE table is copied to a device once, by its first call);
-* globalized per-rank matmul FLOPs on a 2x2 mesh equal the unsharded
-  count;
+  (the RoPE table is copied to a device once, by its first call); the
+  MoE's one-hot is the reference's;
+* for every family, rank 0's matmul FLOPs on a 2x2 mesh times 4 equal
+  the unsharded count, per model line (forward and backward) and for
+  the whole step (``launch/split.py``);
+* the launch tools' cell files pass ``tests/test_results_artifacts.py``'s
+  checks;
 * ``perf.py``'s exchange gives the 1-bit variant exactly 4x fewer
   collective bytes than the f32 all-reduce; blockwise attention does
   naive's matmuls (and, eagerly, moves more bytes).
@@ -24,6 +28,7 @@ fixture, after JAX's backend is up, and the variable is put back.
 Tolerance: none — every comparison is exact.
 """
 
+import json
 import os
 
 import numpy as np
@@ -31,13 +36,10 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.launch import hlo_analysis, perf, roofline
+from repro_torch.launch import dryrun, hlo_analysis, perf, roofline, split
 from repro_torch.launch.mesh import fake_mesh
-from repro_torch.launch.specs import demo_batch
 from repro_torch.models.config import SHAPES, ShapeConfig
-from repro_torch.models.registry import get_model
-from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
-from repro_torch.train.steps import make_train_step
+from repro_torch.models.moe import one_hot
 
 
 @pytest.fixture
@@ -139,24 +141,14 @@ def test_an_unmetered_collective_raises(mesh22):
             dist.broadcast(torch.zeros(4), src=0, group=mesh22.get_group("data"))
 
 
-def _train_args(cfg, device, batch=2, seq=16):
-    params = get_model(cfg).init_params(cfg, 0, device)
-    opt = init_opt_state(params, OptimizerConfig(state_dtype=cfg.optimizer_dtype))
-    data = demo_batch(cfg, batch, seq, seed=0, device="cpu")
-    if device == "meta":
-        data = {
-            "inputs": {k: torch.empty_like(v, device="meta") for k, v in data["inputs"].items()},
-            "labels": torch.empty_like(data["labels"], device="meta"),
-        }
-    return make_train_step(cfg, OptimizerConfig(state_dtype=cfg.optimizer_dtype)), (params, opt, data)
-
-
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "xlstm-350m", "recurrentgemma-2b", "whisper-medium"])
+@pytest.mark.parametrize(
+    "arch", ["starcoder2-3b", "xlstm-350m", "recurrentgemma-2b", "whisper-medium", "deepseek-v2-lite-16b"]
+)
 def test_a_train_step_counts_the_same_on_meta_and_cpu(arch):
     cfg = get_config(arch).reduced()
     counts = []
     for device in ("meta", "cpu"):
-        step, args = _train_args(cfg, device)
+        step, args = roofline.plain_cell(cfg, ShapeConfig("t", 16, 2, "train"), device)
         step(*args)  # fills the per-device RoPE table cache once
         m = hlo_analysis.count_step(step, args)
         counts.append((m.flops, m.bytes, m.ops, dict(m.by_op)))
@@ -164,65 +156,68 @@ def test_a_train_step_counts_the_same_on_meta_and_cpu(arch):
     assert counts[0][0] > 0 and counts[0][1] > 0
 
 
-def _matmul_sites(cfg, args_fn):
-    """Matmul FLOPs of one forward by the model line that issued them:
-    ``{(file, function, line): flops}``."""
-    import traceback
+def test_the_moe_one_hot_is_the_references():
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
 
-    sites = {}
-    meter = hlo_analysis.OpMeter()
-    count = meter._count
-
-    def by_site(func, args, kwargs, out):
-        before = meter.flops
-        count(func, args, kwargs, out)
-        if meter.flops > before:
-            frame = next(f for f in reversed(traceback.extract_stack()) if "repro_torch/models" in f.filename)
-            key = (os.path.basename(frame.filename), frame.name, frame.line)
-            sites[key] = sites.get(key, 0) + meter.flops - before
-
-    meter._count = by_site
-    with meter:
-        args_fn()
-    return sites, meter
+    E = 6
+    ids = np.random.default_rng(0).integers(0, E, size=(3, 17))
+    ids[1, :E] = np.arange(E)  # every id, E - 1 among them
+    got = one_hot(torch.from_numpy(ids), E)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax.nn.one_hot(ids, E, dtype=jnp.int32)))
 
 
-# the one matmul torch 2.13's DTensor runs on every data rank (its input
-# arrives partial over "model"), so rank 0 computes twice its share;
-# torch 2.11's splits it (ROADMAP C22)
-_REPLICATED = {("layers.py", "mlp_fwd", 'h = torch.einsum("bsd,df->bsf", x, p["up"].to(cdt))'): 2}
+@pytest.mark.parametrize("arch", split.FAMILIES)
+def test_per_rank_matmul_flops_globalize_to_the_unsharded_count(mesh22, arch):
+    """A reduced train step on 2x2 (the model axis divides the heads, or
+    one KV head is read whole by every rank): per model line, rank 0's
+    matmul FLOPs times 4 equal the unsharded step's, in the forward and
+    in the backward, and so do the whole step's.  No line runs unsplit
+    on a rank (ROADMAP C23)."""
+    res = split.family_split(arch, mesh22)
+    lines = res["by_line"]
+    assert sum(k.startswith("forward ") for k in lines) >= 5
+    assert sum(k.startswith("backward ") for k in lines) >= 5
+    assert not any(k.endswith(" other") for k in lines)
+    for line, (got, want) in lines.items():
+        assert got == want, line
+    assert res["step"][0] == res["step"][1] > 0
+    assert split.summary(arch, res)["excess"] == {"forward": 0, "backward": 0, "step": 0}
 
 
-def test_per_rank_matmul_flops_globalize_to_the_unsharded_count(mesh22):
-    """A reduced dense train step on 2x2 (4 heads, 2 KV heads: the model
-    axis divides both): per model line, rank 0's forward matmul FLOPs
-    times 4 equal the unsharded forward's, but at the line named in
-    ``_REPLICATED``; the whole step's (forward and backward, which
-    multiplies a matmul's work by 3) differs by exactly 3x that line's
-    excess."""
-    from torch.distributed.tensor.experimental import implicit_replication
+def test_the_launch_tools_cell_files_pass_the_artifact_checks(mesh22, tmp_path, monkeypatch):
+    """Cells written as the port's launch tools write them (to
+    ``results/torch/`` by default, here to ``tmp_path``) pass the
+    reference's checks of its own cell files, with the reference's
+    roofline keys."""
+    import test_results_artifacts as artifacts
 
-    from repro_torch.distributed.sharding import active_mesh
-    from repro_torch.train.steps import make_loss_fn
-
-    cfg = get_config("starcoder2-3b").reduced()
-    shape = ShapeConfig("t", 16, 4, "train")
-    loss_fn = make_loss_fn(cfg)
-    step, (params, opt, batch) = roofline.layout_cell(cfg, shape, mesh22)
-    with active_mesh(mesh22), implicit_replication():
-        step(params, opt, batch)  # DTensor's sharding, inferred once
-        sharded, _ = _matmul_sites(cfg, lambda: loss_fn(params, batch))
-    plain_step, (p0, _, b0) = _train_args(cfg, "meta", batch=4, seq=16)
-    plain, _ = _matmul_sites(cfg, lambda: loss_fn(p0, b0))
-    assert sharded.keys() == plain.keys() and len(plain) >= 5
-    excess = 0
-    for site, flops in plain.items():
-        assert 4 * sharded[site] == _REPLICATED.get(site, 1) * flops, site
-        excess += 4 * sharded[site] - flops
-    assert excess > 0
-    whole = roofline.count_cell(cfg, shape, mesh22).flops
-    plain_step(*_train_args(cfg, "meta", batch=4, seq=16)[1])  # the RoPE table's copy, once
-    assert whole - hlo_analysis.count_step(plain_step, _train_args(cfg, "meta", batch=4, seq=16)[1]).flops == 3 * excess
+    cell = roofline.run_cell(
+        "starcoder2-3b", "decode_32k", cfg=get_config("starcoder2-3b").reduced(), mesh=mesh22,
+        out_dir=str(tmp_path / "roofline"),
+    )
+    for mp in (False, True):
+        dryrun.run_cell("granite-8b", "decode_32k", mp, roofline=False, out_dir=str(tmp_path / "dryrun"))
+    written = sorted(p.relative_to(tmp_path).as_posix() for p in tmp_path.rglob("*.json"))
+    assert written == [
+        "dryrun/granite-8b_decode_32k_16x16.json",
+        "dryrun/granite-8b_decode_32k_2x16x16.json",
+        "roofline/starcoder2-3b_decode_32k.json",
+    ]
+    with open(tmp_path / "roofline" / "starcoder2-3b_decode_32k.json") as f:
+        assert json.load(f) == cell
+    assert set(cell) == {
+        "arch", "shape", "mesh", "status", "method", "units", "elapsed_s",
+        "params_total", "params_active", "model_flops", "useful_ratio", "roofline",
+    }
+    monkeypatch.setattr(artifacts, "RESULTS", str(tmp_path))
+    artifacts.test_all_dryrun_cells_ok()
+    artifacts.test_dryrun_covers_both_meshes()
+    artifacts.test_roofline_terms_sane()
+    assert roofline.RESULTS_DIR.endswith("results/torch/roofline")
+    assert dryrun.RESULTS_DIR.endswith("results/torch/dryrun") and perf.RESULTS_DIR.endswith("results/torch/perf")
 
 
 def test_a_counted_step_counts_the_same_again(mesh22):

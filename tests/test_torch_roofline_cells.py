@@ -17,8 +17,8 @@ import math
 
 import pytest
 
-from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.launch import roofline
+from repro_torch.configs import get_config
+from repro_torch.launch import roofline, split
 from repro_torch.launch.dryrun import cell_is_skipped
 from repro_torch.launch.mesh import fake_mesh
 from repro_torch.models.config import SHAPES
@@ -49,6 +49,6 @@ def check_cell(mesh, arch: str, shape: str) -> dict:
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "xlstm-350m"])
+@pytest.mark.parametrize("arch", split.CELL_ARCHS)
 def test_every_cell_runs_at_reduced_size(mesh22, arch, shape):
     check_cell(mesh22, arch, shape)

@@ -7,9 +7,11 @@
   meshes.
 * One 4-rank gloo job on a 2x2 ("data", "model") mesh
   (``tests/_dist_worker.py``, spawned once for this file), started from
-  the reference's parameters: granite-8b (2 layers) and deepseek-v2-lite
-  losses within 1e-4 of the reference's single-device loss; starcoder2-3b
-  gradients within rtol 2e-3, atol 2e-4 (the reference's own tolerances,
+  the reference's parameters: the losses of one arch per family
+  (granite-8b (2 layers), starcoder2-3b, deepseek-v2-lite-16b,
+  recurrentgemma-2b, xlstm-350m, whisper-medium) within 1e-4 of the
+  reference's single-device loss, and every gradient leaf of each within
+  rtol 2e-3, atol 2e-4 (the reference's own tolerances,
   ``tests/test_distributed.py:67,99``); one signSGD step (starcoder2-3b)
   and one AdamW step (granite-8b) against the unsharded port's step, the
   gathered ``acc`` and updated parameters within the gradient tolerance
@@ -175,17 +177,16 @@ def job(tmp_path_factory):
                 "labels": np.asarray(batch["labels"], np.int64),
             },
         }
+        if "frames" in batch["inputs"]:
+            inputs[arch]["batch"]["frames"] = np.asarray(batch["inputs"]["frames"], np.float32)
     with open(workdir / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
     ctx = _dist_worker.start(str(workdir))
     ref = {}
     try:  # the reference's numbers while the job runs
         for arch, (loss_fn, params, batch) in cells.items():
-            if arch == "starcoder2-3b":
-                loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params, batch)
-                ref[f"{arch}/grads"] = {k: np.asarray(v) for k, v in flatten(grads).items()}
-            else:
-                loss = jax.jit(loss_fn)(params, batch)
+            loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params, batch)
+            ref[f"{arch}/grads"] = {k: np.asarray(v) for k, v in flatten(grads).items()}
             ref[f"{arch}/loss"] = float(loss)
     finally:
         try:
@@ -197,17 +198,20 @@ def job(tmp_path_factory):
         return ref, pickle.load(f)
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "deepseek-v2-lite-16b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", _dist_worker.ARCHS)
 def test_sharded_loss_equals_the_reference(job, arch):
     ref, got = job
     assert got[f"{arch}/loss"] == pytest.approx(ref[f"{arch}/loss"], abs=1e-4)
     assert got[f"{arch}/placements_match"]  # grads come in the parameters' layout
 
 
-def test_sharded_gradients_equal_the_reference(job):
+@pytest.mark.parametrize("arch", _dist_worker.ARCHS)
+def test_sharded_gradients_equal_the_reference(job, arch):
+    """Every leaf, a weight beside split rows or the one KV head beside
+    split query heads included: its gradient sums every rank's share."""
     ref, got = job
-    want, have = ref["starcoder2-3b/grads"], got["starcoder2-3b/grads"]
-    assert list(have) == list(want) and len(have) == 19
+    want, have = ref[f"{arch}/grads"], got[f"{arch}/grads"]
+    assert list(have) == list(want) and (arch != "starcoder2-3b" or len(have) == 19)
     for k, v in want.items():
         np.testing.assert_allclose(have[k], v, err_msg=k, **GRAD_TOL)
 
