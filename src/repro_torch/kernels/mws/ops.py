@@ -114,6 +114,7 @@ def mws_gather(
     invert: bool = False,
     ext: torch.Tensor | None = None,
     shr: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Gather-reduce rows of ``src`` (S, W) by ``idx`` (B, K, N) int32.
 
@@ -122,7 +123,9 @@ def mws_gather(
     ``invert``.  A negative index ``-1 - j`` names substituted row ``j``:
     ``ext[b, j]`` (ext is (B, M, W)) for ``j < M``, else ``shr[j - M]``.
     Indices are not range-checked here; callers build them from store
-    slots (see :func:`repro_torch.query.device.encode_idx`).
+    slots (see :func:`repro_torch.query.device.encode_idx`).  ``out``, if
+    given, receives the result (a contiguous int32 tensor of its shape on
+    ``src``'s device, such as rows of a larger stack) and is returned.
     """
     if op not in _OP_CODES:
         raise ValueError(f"inner op must be AND/OR/XOR, got {op}")
@@ -131,14 +134,38 @@ def mws_gather(
             f"expected src (S, W) and idx (B, K, N), got {tuple(src.shape)} "
             f"and {tuple(idx.shape)}"
         )
-    if _build.on_cpu(src):
-        return mws_gather_ref(
-            src, idx, op, outer_or=outer_or, invert=invert, ext=ext, shr=shr
-        )
-    _build.check_words(src, "src", 2)
-    _build.check_words(idx, "idx", 3)
     B, K, N = idx.shape
     W = src.shape[1]
+    shape = (B, W) if outer_or else (B, K, W)
+    if out is not None and (
+        tuple(out.shape) != shape
+        or out.dtype != torch.int32
+        or out.device != src.device
+        or not out.is_contiguous()
+    ):
+        raise ValueError(
+            f"out must be a contiguous int32 {shape} tensor on {src.device}"
+        )
+    if _build.on_cpu(src):
+        if out is None:
+            return mws_gather_ref(
+                src, idx, op, outer_or=outer_or, invert=invert, ext=ext, shr=shr
+            )
+        # rows of a stack, one batch row at a time: a plain gather of many
+        # rows at once runs parallel and stalls when processes share cores
+        for b in range(B):
+            out[b : b + 1] = mws_gather_ref(
+                src,
+                idx[b : b + 1],
+                op,
+                outer_or=outer_or,
+                invert=invert,
+                ext=None if ext is None else ext[b : b + 1],
+                shr=shr,
+            )
+        return out
+    _build.check_words(src, "src", 2)
+    _build.check_words(idx, "idx", 3)
     if ext is not None:
         _build.check_words(ext, "ext", 3)
         if ext.shape[0] != B or ext.shape[2] != W:
@@ -149,9 +176,8 @@ def mws_gather(
             raise ValueError(f"shr must be (M, {W}), got {tuple(shr.shape)}")
     if N == 0 or K == 0:
         raise ValueError("idx needs at least one block and one wordline")
-    out = torch.empty(
-        (B, W) if outer_or else (B, K, W), dtype=torch.int32, device=src.device
-    )
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=src.device)
     if B == 0 or W == 0:
         return out
     if (B if outer_or else B * K) > _MAX_GRID_Y:

@@ -91,7 +91,12 @@ from repro_torch.query.bitmap import (
     bsi_page,
     eq_page,
 )
-from repro_torch.query.device import encode_idx, group_execs, make_flush_runner
+from repro_torch.query.device import (
+    encode_idx,
+    group_execs,
+    hoist_flush,
+    make_flush_runner,
+)
 from repro_torch.query.optimize import best_plan
 
 
@@ -590,12 +595,13 @@ class FlushProgram:
     every flush with zero host-side preparation.
     """
 
-    key: tuple  # flush signature: (sense groups, reduce groups, words, cse)
-    runner: object  # run(data, group_idxs, inv_perm, mask, sels, extras, cse_idxs)
+    key: tuple  # flush signature: (sense groups, reduce groups, words, cse, hoist)
+    runner: object  # run(data, group_idxs, ..., cse_idxs, hoist_idxs, fold_idxs)
     n_members: int
     n_sense_groups: int
     n_reduce_groups: int
-    group_idxs: tuple  # per sense group: tuple of encoded (B_g, blocks, wls)
+    # per sense group that does not fold: tuple of encoded (B_g, blocks, wls)
+    group_idxs: tuple
     # (B,) member gather over the sensed rows: with whole-plan dedup it
     # maps each member onto its unique representative's row
     inv_perm: torch.Tensor
@@ -604,6 +610,11 @@ class FlushProgram:
     reduce_parse: tuple  # per reduce group: (member tuple, payload leaves)
     extra_counts: tuple  # per member: extra planes sensed (traffic accounting)
     cse_idxs: tuple = ()  # per shared plan: tuple of encoded (1, blocks, wls)
+    # the commands sensed once for the whole flush (hoist_flush): per
+    # launch (H, blocks, wls) slots, per fold launch (P, 1, n) stack rows
+    hoist_idxs: tuple = ()
+    fold_idxs: tuple = ()
+    sensings_hoisted: int = 0  # command sensings the hoist saves a run
 
     def run(self, data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Launch the program (asynchronous); returns the device payload."""
@@ -615,6 +626,8 @@ class FlushProgram:
             self.sels,
             self.extras,
             self.cse_idxs,
+            self.hoist_idxs,
+            self.fold_idxs,
         )
 
     def unpack(self, flat: np.ndarray, aggs: list) -> list:
@@ -661,7 +674,9 @@ def compile_flush(
     sensed, and the member gather points duplicates at the
     representative's row.  ``shared_execs`` are the flush's cross-query
     shared subexpression plans (:func:`repro_torch.query.optimize.cse_flush`),
-    sensed once before the member groups.
+    sensed once before the member groups.  A command that several plans
+    of the flush sense is sensed once too, where that saves bytes and
+    AND chains fold over it (:func:`repro_torch.query.device.hoist_flush`).
     """
     assert all(e is not None for e in execs), "fused flush needs lowered plans"
     n = len(execs)
@@ -680,18 +695,22 @@ def compile_flush(
         uix = list(range(n))
         urep = list(range(n))
         uexecs = execs
-    sense: list[tuple] = []
-    group_idxs: list[tuple] = []
-    order: list[int] = []
-    for signature, members, stacked in group_execs(uexecs, pad=pad):
-        sense.append((signature, len(members)))
-        group_idxs.append(
-            tuple(
-                torch.as_tensor(x, device=device)
-                for x in encode_idx(signature, stacked)
-            )
+    groups = group_execs(uexecs, pad=pad)
+    hoist = hoist_flush(uexecs, groups, len(shared_execs))
+    if hoist is None:
+        folded = (False,) * len(groups)
+        order = [i for _sig, members, _stacked in groups for i in members]
+    else:
+        groups, folded, order = hoist.groups, hoist.folded, hoist.order
+    sense = [(signature, len(members)) for signature, members, _ in groups]
+    group_idxs = [
+        tuple(
+            torch.as_tensor(x, device=device)
+            for x in encode_idx(signature, stacked)
         )
-        order.extend(members)
+        for (signature, _members, stacked), f in zip(groups, folded)
+        if not f
+    ]
     # row_of: unique-plan ordinal -> its row in the concatenated group
     # output; composing with urep gives the member gather
     row_of = np.empty(len(uexecs), dtype=np.int64)
@@ -723,7 +742,13 @@ def compile_flush(
         parse.append((tuple(members), payload_spec(kind, sig, len(members), words)))
 
     cse = tuple(e.signature for e in shared_execs)
-    key = (tuple(sense), tuple(reduce_sigs), words, cse)
+    key = (
+        tuple(sense),
+        tuple(reduce_sigs),
+        words,
+        cse,
+        () if hoist is None else hoist.key,
+    )
     # the device type joins the cache key: runners on CUDA launch the
     # kernels, runners on the CPU run their plain versions
     rkey = key + (torch.device(device).type,)
@@ -754,4 +779,11 @@ def compile_flush(
             )
             for e in shared_execs
         ),
+        hoist_idxs=()
+        if hoist is None
+        else tuple(torch.as_tensor(x, device=device) for x in hoist.sense),
+        fold_idxs=()
+        if hoist is None
+        else tuple(torch.as_tensor(x, device=device) for _, x in hoist.folds),
+        sensings_hoisted=0 if hoist is None else hoist.saved,
     )

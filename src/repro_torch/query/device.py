@@ -31,7 +31,10 @@ batch path never does).
 
 :func:`make_flush_runner` runs a WHOLE flush — every signature group plus
 every aggregate reduce — and returns a single flat 32-bit payload (see
-:func:`repro_torch.query.compile.compile_flush`).
+:func:`repro_torch.query.compile.compile_flush`).  Where the flush's
+plans repeat commands and AND chains fold over them, :func:`hoist_flush`
+has each sensed once for all of them; the modelled chip still senses every command of every plan, so the
+counters and the wear do not change.
 """
 
 from __future__ import annotations
@@ -82,6 +85,9 @@ class _Step:
     # the flush-level shared-value stack (cross-query CSE): the row is a
     # latch result another plan in the same flush already sensed
     shared: tuple[tuple[int, int, int], ...] = ()
+    # "mws": some batch element reads a command the fused flush sensed
+    # ahead (see hoist_flush); its whole gather row names that shared row
+    hoisted: bool = False
     ordinal: int = 0  # "spill": index into the plan's scratch values
 
 
@@ -263,7 +269,7 @@ def plan_step_fn(signature: tuple[_Step, ...]):
             if st.kind == "mws":
                 idx = next(it)
                 ext = torch.stack(scratch, dim=1) if st.subs else None
-                shr = shared if st.shared else None
+                shr = shared if st.shared or st.hoisted else None
                 if st.k:
                     per_block = mws_gather(
                         data, idx, BitOp.AND, outer_or=False, ext=ext, shr=shr
@@ -317,18 +323,208 @@ def offset_slots(idx: np.ndarray, base: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out, dtype=np.int32)
 
 
+def _hoistable(st: _Step) -> bool:
+    """A plain MWS step whose command is one gather row of store slots."""
+    return st.kind == "mws" and not (st.k or st.subs or st.shared)
+
+
+def _pure_and_chain(signature: tuple[_Step, ...]) -> bool:
+    """Whether a plan is ``S = AND of its commands``, then a transfer of S:
+    one latch initialisation, plain non-inverted senses, nothing else."""
+    *mws, last = signature
+    return (
+        bool(mws)
+        and last.kind == "xfer"
+        and last.source == "S"
+        and mws[0].init_s
+        and all(
+            _hoistable(st) and not (st.inverse or st.move) for st in mws
+        )
+        and not any(st.init_s for st in mws[1:])
+    )
+
+
+def _pad_wordlines(idx: np.ndarray, n: int) -> np.ndarray:
+    """Pad the last axis to ``n`` by repeating each block's first entry:
+    an AND within a block, and an OR over blocks, ignore repeats."""
+    extra = n - idx.shape[-1]
+    if not extra:
+        return idx
+    return np.concatenate(
+        [idx, np.repeat(idx[..., :1], extra, axis=-1)], axis=-1
+    )
+
+
+@dataclass(frozen=True)
+class FlushHoist:
+    """The commands a fused flush senses once, ahead of its plans.
+
+    ``sense`` holds one ``(H, blocks, wordlines)`` slot array per launch
+    (commands of equal block count, wordlines padded by repetition); their
+    outputs are the hoisted stack, which follows the flush's CSE values in
+    the shared rows.  ``folds`` holds ``(invert, (P, 1, n))`` per fold
+    launch: plans that are pure AND chains run as one gather over their
+    hoisted rows.  ``groups`` are the batch groups with every other read
+    of a hoisted command rewritten to name its shared row; ``folded``
+    marks the groups whose plans run in a fold, ``order`` the plan order
+    of the concatenated outputs (folds first), and ``saved`` the command
+    sensings saved.
+    """
+
+    sense: tuple[np.ndarray, ...]
+    folds: tuple[tuple[bool, np.ndarray], ...]
+    groups: list
+    folded: tuple[bool, ...]
+    order: list[int]
+    saved: int
+
+    @property
+    def key(self) -> tuple:
+        """The structure a flush runner needs (shapes and flags only)."""
+        return (
+            tuple(x.shape for x in self.sense),
+            tuple((inv, x.shape) for inv, x in self.folds),
+            self.folded,
+        )
+
+
+def hoist_flush(
+    execs: list[ExecPlan], groups: list[tuple], n_shared: int
+) -> FlushHoist | None:
+    """Plan the fused flush's sensing of each distinct command once.
+
+    A command is a plain MWS step's gather row (``_hoistable``); two are
+    the same when their slot arrays are equal.  A command read ``occ``
+    times over ``rows`` slots is worth hoisting when that saves bytes: it
+    is then sensed once (``rows`` reads, one write) and each read takes
+    one row, so ``(occ - 1) * rows > occ + 1``.  A batch group of pure AND
+    chains (:func:`_pure_and_chain`) in which every plan names such a
+    command folds: its plans' other commands are hoisted too (sensed once
+    either way) and each plan becomes one row of a fold launch, which
+    drops the chain's per-step launches and ``s & raw`` passes.  The hoist
+    itself adds launches, so a flush in which no group folds returns None
+    and runs exactly as built by :func:`group_execs`, repeats or not.
+    ``execs`` are the groups' (unpadded) plans and ``n_shared`` the
+    flush's CSE value count.
+    """
+    where: dict[tuple, list[tuple[int, int, int]]] = {}
+    for g, (signature, members, _stacked) in enumerate(groups):
+        mws = [st for st in signature if st.kind == "mws"]
+        for s, st in enumerate(mws):
+            if _hoistable(st):
+                for j, i in enumerate(members):
+                    idx = execs[i].idxs[s]
+                    where.setdefault((idx.shape, idx.tobytes()), []).append(
+                        (g, j, s)
+                    )
+    repeats = {
+        c
+        for c, at in where.items()
+        if (len(at) - 1) * int(np.prod(c[0])) > len(at) + 1
+    }
+    if not repeats:
+        return None
+
+    def command(i: int, s: int) -> tuple:
+        idx = execs[i].idxs[s]
+        return (idx.shape, idx.tobytes())
+
+    folded = tuple(
+        _pure_and_chain(signature)
+        and all(
+            any(command(i, s) in repeats for s in range(len(execs[i].idxs)))
+            for i in members
+        )
+        for signature, members, _stacked in groups
+    )
+    if not any(folded):
+        return None
+    hoisted = set(repeats)
+    for g, (_sig, members, _stacked) in enumerate(groups):
+        if folded[g]:
+            hoisted.update(
+                command(i, s) for i in members for s in range(len(execs[i].idxs))
+            )
+    # the stack: commands of one block count share a launch
+    by_blocks: dict[int, list[tuple]] = {}
+    for c in sorted(hoisted, key=lambda c: where[c][0]):
+        by_blocks.setdefault(c[0][0], []).append(c)
+    row: dict[tuple, int] = {}
+    sense = []
+    for cmds in by_blocks.values():
+        n = max(c[0][1] for c in cmds)
+        rows = []
+        for c in cmds:
+            row[c] = n_shared + len(row)
+            rows.append(
+                _pad_wordlines(np.frombuffer(c[1], np.int32).reshape(c[0]), n)
+            )
+        sense.append(np.stack(rows))
+
+    uses = 0
+    folds: dict[bool, list[tuple[int, list[int]]]] = {}  # (plan, rows)
+    out_groups = []
+    rest: list[int] = []
+    for g, (signature, members, stacked) in enumerate(groups):
+        if folded[g]:
+            inv = signature[-1].invert
+            for i in members:
+                rows = [row[command(i, s)] for s in range(len(execs[i].idxs))]
+                folds.setdefault(inv, []).append((i, rows))
+                uses += len(rows)
+            out_groups.append((signature, members, stacked))
+            continue
+        stacked = list(stacked)
+        steps = list(signature)
+        mws_pos = [p for p, st in enumerate(steps) if st.kind == "mws"]
+        for s, p in enumerate(mws_pos):
+            if not _hoistable(steps[p]):
+                continue
+            for j, i in enumerate(members):
+                c = command(i, s)
+                if c in repeats:
+                    if not steps[p].hoisted:
+                        stacked[s] = stacked[s].copy()
+                        steps[p] = replace(steps[p], hoisted=True)
+                    # the kernel decodes -1 - r past the CSE values: the
+                    # whole row names the hoisted command (AND/OR ignore
+                    # repeats, so the padding does too)
+                    stacked[s][j] = -1 - row[c]
+                    uses += 1
+        out_groups.append((tuple(steps), members, stacked))
+        rest.extend(members)
+    fold_arrays = []
+    order: list[int] = []
+    for inv, plans in folds.items():
+        n = max(len(rows) for _i, rows in plans)
+        padded = [_pad_wordlines(np.asarray(rows, np.int32), n) for _i, rows in plans]
+        fold_arrays.append((inv, np.stack(padded)[:, None, :]))
+        order.extend(i for i, _rows in plans)
+    return FlushHoist(
+        sense=tuple(sense),
+        folds=tuple(fold_arrays),
+        groups=out_groups,
+        folded=folded,
+        order=order + rest,
+        saved=uses - len(hoisted),
+    )
+
+
 def make_flush_runner(key: tuple):
     """Build the function executing a whole flush signature.
 
-    ``key`` is the flush signature: ``(sense, reduce, w, cse)`` where
-    ``sense`` is a tuple of ``(plan signature, member count)`` per batch
-    group, ``reduce`` a tuple of ``(aggregator kind, reduce_sig, member
-    count, extra-plane count)`` per reduce group, ``w`` the store's logical
-    word count, and ``cse`` a tuple of shared-plan signatures — the
-    cross-query common subexpressions this flush senses ONCE.  The
-    returned ``run(data, group_idxs, inv_perm, mask, sels, extras,
-    cse_idxs)`` runs everything a flush does on the device — the shared
-    sensings, the per-group gather-reduce + latch algebra, the
+    ``key`` is the flush signature: ``(sense, reduce, w, cse, hoist)``
+    where ``sense`` is a tuple of ``(plan signature, member count)`` per
+    batch group, ``reduce`` a tuple of ``(aggregator kind, reduce_sig,
+    member count, extra-plane count)`` per reduce group, ``w`` the store's
+    logical word count, ``cse`` a tuple of shared-plan signatures — the
+    cross-query common subexpressions this flush senses ONCE — and
+    ``hoist`` the :attr:`FlushHoist.key` of the commands it senses once
+    (``()`` for none).  The returned ``run(data, group_idxs, inv_perm,
+    mask, sels, extras, cse_idxs, hoist_idxs, fold_idxs)`` runs everything
+    a flush does on the device — the shared sensings, the hoisted
+    commands and the fold launches, the per-group gather-reduce + latch
+    algebra (``group_idxs`` for the groups that do not fold), the
     member-order gather (``inv_perm`` maps members onto deduplicated
     unique-plan rows), validity masking, and every aggregate's reduce —
     and returns ONE flat int32 payload (see
@@ -337,19 +533,40 @@ def make_flush_runner(key: tuple):
     """
     from repro_torch.query.aggregate import kind_reduce, payload_words
 
-    sense, reduce_sigs, w, cse = key
-    group_fns = [plan_step_fn(psig) for psig, _n in sense]
+    sense, reduce_sigs, w, cse, hoist = key
+    hoist_shapes, fold_keys, folded = hoist or ((), (), (False,) * len(sense))
+    group_fns = [
+        plan_step_fn(psig) for (psig, _n), f in zip(sense, folded) if not f
+    ]
     cse_fns = [plan_step_fn(psig) for psig in cse]
+    n_hoisted = sum(shape[0] for shape in hoist_shapes)
 
-    def run(data, group_idxs, inv_perm, mask, sels, extras, cse_idxs):
+    def run(
+        data, group_idxs, inv_perm, mask, sels, extras, cse_idxs, hoist_idxs, fold_idxs
+    ):
         shared = None
-        if cse:
-            # shared subexpressions first (one plan each, B = 1); members
-            # read their rows through the kernel's shared-row source
-            shared = torch.cat(
-                [fn(data, None, *idxs) for fn, idxs in zip(cse_fns, cse_idxs)]
+        if cse or hoist:
+            # the shared rows: the CSE values (one plan each, B = 1), then
+            # the hoisted commands, each launch writing its rows in place;
+            # members read them through the kernel's shared-row source
+            shared = torch.empty(
+                (len(cse) + n_hoisted, data.shape[1]),
+                dtype=data.dtype,
+                device=data.device,
             )
+            if cse:
+                torch.cat(
+                    [fn(data, None, *idxs) for fn, idxs in zip(cse_fns, cse_idxs)],
+                    out=shared[: len(cse)],
+                )
+            r = len(cse)
+            for idx in hoist_idxs:
+                mws_gather(data, idx, BitOp.AND, out=shared[r : r + len(idx)])
+                r += len(idx)
         pieces = [
+            mws_gather(shared, idx, BitOp.AND, invert=inv)[:, :w]
+            for (inv, _shape), idx in zip(fold_keys, fold_idxs)
+        ] + [
             fn(data, shared, *idxs)[:, :w]
             for fn, idxs in zip(group_fns, group_idxs)
         ]

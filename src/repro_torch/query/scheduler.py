@@ -713,6 +713,9 @@ class BatchScheduler:
                 for b in cse.shared_blocks:
                     self.device.pec[b] = self.device.pec.get(b, 0) + 1
             tele.count("fused_dispatches")
+            # an emulation detail, not modelled traffic: a gauge, so the
+            # counters stay the reference's
+            tele.gauge("sense_commands_hoisted", program.sensings_hoisted)
             self.device.last_signature_groups = program.n_sense_groups
             t_disp = time.perf_counter()
             # the single device->host copy of the flush (also the barrier

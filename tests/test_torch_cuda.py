@@ -115,3 +115,48 @@ def test_eager_engine_on_the_card(cuda):
         arr.pec[0] = 10_000
         results.append(to_uint32(arr.fc_read(expr)))
     np.testing.assert_array_equal(results[0], results[1])
+
+
+@pytest.mark.cuda
+def test_hoisted_bmi_flush_on_the_card_matches_the_cpu(cuda):
+    """The paper's five BMI windows in one flush: the card senses each of
+    their 25 distinct commands once (one streaming launch) and folds the
+    five AND chains (one staged launch), and gives the CPU's counts and
+    MASK words bit for bit; so does a flush in which plans that do not
+    fold read hoisted commands, inverted and over two blocks."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from cellbench.systems.flashql import build_store, day_column
+    from cellbench.tables import make_days
+
+    users, days = (1 << 17) + 5, 1095
+    words = make_days({"users": users, "days": days}, 9).numpy().view(np.uint32)
+    windows = [T.And([T.Eq(day_column(t), 1) for t in range(days - w, days)])
+               for w in (30, 182, 365, 730, 1095)]
+    either = windows[0] | T.And([T.Eq(day_column(t), 1) for t in range(30)])
+    mixed = [T.Not(either), either, either & T.Not(T.Eq(day_column(40), 1))]
+    got = []
+    for device in ("cpu", cuda):
+        store = build_store(words, users)
+        dev = T.FlashDevice(num_planes=4, device=device)
+        store.program(dev, warmup=[T.Query(p) for p in windows])
+        sched = T.BatchScheduler(dev, store, optimize=True)
+        before = dict(mws_gather.variant_launches)
+        out = [r.count for r in sched.serve([T.Query(p) for p in windows])]
+        out += [np.asarray(r.value.words).tolist()
+                for r in sched.serve([T.Query(p, agg=T.Agg.MASK) for p in windows])]
+        if device != "cpu":
+            assert {k: v - before[k] for k, v in mws_gather.variant_launches.items()} == {
+                "streaming": 2, "staged": 2}
+        assert sched.telemetry.gauges["sense_commands_hoisted"] == 32
+        # beside the folds, plans that read hoisted rows as shared rows: a
+        # two-block command, plain and inverted
+        out += [r.count for r in sched.serve([T.Query(p) for p in mixed] + [T.Query(p) for p in windows])]
+        (program,) = [p for k, p in sched._flush_programs.items() if len(k[0]) == 8]
+        assert any(st.hoisted and st.inverse
+                   for (sig, _n), f in zip(program.key[0], program.key[4][2]) if not f for st in sig)
+        stats = {k: v for k, v in sched.stats().items() if k not in _TIMED}
+        got.append((out, stats, dict(dev.pec)))
+    assert got[0] == got[1]

@@ -394,7 +394,9 @@ def _compact_reclaims_capacity(S):
         {k: stats[k] for k in keys},
         _value(r),
         {k: v for k, v in snap["counters"].items() if not k.endswith("_s")},
-        snap["gauges"],
+        # the port's own gauge (command sensings its fused flush hoists)
+        # has no counterpart in the reference
+        {k: v for k, v in snap["gauges"].items() if k != "sense_commands_hoisted"},
         sched.projection(),
         _state(sched),
     )
