@@ -1,17 +1,22 @@
 """Run one cell of ``BENCHMARK.json`` once.
 
-Everything is found by name: the cell names its configuration and its
-traffic mix; the configuration file names its system adapter
-(``systems/<system>.py``) and its plain reference
-(``reference/<reference>.py``); the mix names its loop
-(``traffic/<loop>.py``); every metric is read by
-``metrics/<metric>.py``.  So a later change adds a cell, a configuration,
-a mix or a metric as new files and entries, and edits none of these.
+Everything is found by name (:func:`plugins`): the cell names its
+configuration and its traffic mix; the configuration file names its
+system adapter (``systems/<system>.py``), its plain reference
+(``reference/<reference>.py``), its data maker (``data/<data>.py``) and
+its least-work reckoner (``work/<work>.py``); the mix names its loop
+(``traffic/<loop>.py``) and its generator (``generators/<generator>.py``);
+every metric is read by ``metrics/<metric>.py``.  A configuration or mix
+that names no data maker, reckoner or generator gets the BMI ones
+(``days``, ``days``, ``windows``).  Every query carries its own aggregate.
+So a later change adds a cell, a configuration, a mix or a metric, of
+any data and any aggregates, as new files and entries, and edits none of
+these.
 
-A run: the day bitmaps from the seed, the store and its programming
-through the system's public entry, warm-up on the cell's own traffic, the measured window, the
-metrics, then (with the program's state freed) every answer of the window
-held against the reference.
+A run: the data from the seed, the program built from it through the
+system's public entry, warm-up on the cell's own traffic, the measured
+window, the metrics, then (with the program's state freed) every answer
+of the window held against the reference.
 """
 
 from __future__ import annotations
@@ -28,9 +33,8 @@ import numpy as np
 
 from cellbench import trace as tr
 from cellbench.record import Client, Recording
-from cellbench.reference.work import flush_work
-from cellbench.tables import make_days, num_words, to_host
-from cellbench.traffic.generator import Traffic, load_json, load_mix, rng_for
+from cellbench.tables import num_words
+from cellbench.traffic.generator import load_json, load_mix, rng_for
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = ROOT / "cellbench"
@@ -69,22 +73,40 @@ def load_reader(name: str):
     return mod
 
 
+def plugins(config: dict, mix: dict) -> SimpleNamespace:
+    """The modules a configuration and its mix name, each found by name.
+    Without a ``data``, ``work`` or ``generator`` entry the BMI ones;
+    ``"work": null`` names no reckoner, and the readers of least work
+    then read nothing."""
+    work = config.get("work", "days")
+    return SimpleNamespace(
+        data=importlib.import_module(f"cellbench.data.{config.get('data', 'days')}"),
+        work=None if work is None else importlib.import_module(f"cellbench.work.{work}"),
+        system=importlib.import_module(f"cellbench.systems.{config['system']}"),
+        reference=importlib.import_module(f"cellbench.reference.{config['reference']}"),
+        generator=importlib.import_module(f"cellbench.generators.{mix.get('generator', 'windows')}"),
+        loop=importlib.import_module(f"cellbench.traffic.{mix['loop']}"),
+    )
+
+
 def forbidden_modules() -> list[str]:
     """Loaded modules whose top-level name is JAX's, Flax's or the JAX
     package's, compared as whole names."""
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
-def judge(rec: Recording, traffic: Traffic, reference, words: int) -> tuple[dict, int]:
-    """Every answer of the window against the reference: wrong answers
-    (and MASKs of the wrong length), words that differ in the kept MASKs,
-    and queries never answered; with the number of queries that failed."""
+def judge(rec: Recording, reference, words: int) -> tuple[dict, int]:
+    """Every answer of the window against the reference, each by its own
+    aggregate: wrong answers (COUNT, SUM, AVG, GROUP BY and the rest by
+    equality; MASKs of the wrong length), words that differ in the kept
+    MASKs, and queries never answered; with the number of queries that
+    failed."""
     wrong = wrong_words = unanswered = masks_checked = masks_wrong = 0
-    for i, (pred, _, _, done) in enumerate(rec.queries):
+    for i, (pred, agg, _, _, done) in enumerate(rec.queries):
         if done is None:
             unanswered += 1
             continue
-        if traffic.agg[0] == "mask":
+        if agg[0] == "mask":
             if rec.mask_lengths[i] != words:
                 wrong += 1
             got = rec.masks.get(i)
@@ -94,7 +116,7 @@ def judge(rec: Recording, traffic: Traffic, reference, words: int) -> tuple[dict
                 wrong_words += differ
                 masks_wrong += differ > 0
                 masks_checked += 1
-        elif rec.values[i] != reference.answer(pred, traffic.agg):
+        elif rec.values[i] != reference.answer(pred, agg):
             wrong += 1
     log(
         f"checked {len(rec.queries) - unanswered} answers, {masks_checked} of "
@@ -133,38 +155,32 @@ def run_cell(
     cell, centry = find_cell(bench, workload)
     config = {**load_json(ROOT / centry["file"]), **(config_override or {})}
     mix = load_mix(cell["traffic"])
-    traffic = Traffic(mix, seed, int(config["days"]))
-    loop = importlib.import_module(f"cellbench.traffic.{mix['loop']}")
-    system_mod = importlib.import_module(f"cellbench.systems.{config['system']}")
-    reference_mod = importlib.import_module(f"cellbench.reference.{config['reference']}")
+    mods = plugins(config, mix)
+    traffic = mods.generator.make(mix, seed, config)
 
-    days = make_days(config, seed, device)
-    bitmaps = to_host(days)
-    del days
-    if on_card:
-        torch.cuda.empty_cache()
+    data, rows = mods.data.make(config, seed, device)
     t_table = time.perf_counter()
-    system = system_mod.System(config, bitmaps, traffic, device, telemetry_enabled=trace)
+    system = mods.system.System(config, data, traffic, device, telemetry_enabled=trace)
     t_built = time.perf_counter()
-    warm = Client(system, traffic, Recording())
-    loop.warm(warm, traffic)
+    warm = Client(system, Recording())
+    mods.loop.warm(warm, traffic)
     t_warm = time.perf_counter()
     log(
-        f"set-up: imports and bitmaps {t_table - t_start:.3f} s, store and program {t_built - t_table:.3f} s, "
+        f"set-up: imports and data {t_table - t_start:.3f} s, store and program {t_built - t_table:.3f} s, "
         f"warm-up {t_warm - t_built:.3f} s; warm-up flushes (s): "
         + " ".join(f"{b - a:.3f}" for a, b, _ in warm.rec.flushes)
     )
     del warm
 
     rec = Recording(mask_offset=int(rng_for(seed, 4).integers(1 << 30)))
-    client = Client(system, traffic, rec)
+    client = Client(system, rec)
     device_trace = tr.DeviceTrace() if trace and on_card else None
     counters0 = system.counters()
     gc.collect()
     gc.freeze()
     if device_trace is not None:
         device_trace.start()
-    t0, t1 = loop.drive(client, traffic, seconds)
+    t0, t1 = mods.loop.drive(client, traffic, seconds)
     if on_card:
         torch.cuda.synchronize()
     events = device_trace.stop() if device_trace is not None else None
@@ -204,8 +220,10 @@ def run_cell(
     if trace:
         kind = torch.cuda.get_device_name(0) if on_card else "cpu"
         ctx.peak = load_json(HERE / "peaks.json").get(kind)
-        words = num_words(config["users"])
-        ctx.work = [flush_work(words, [(rec.queries[i][0], traffic.agg) for i in done]) for _, _, done in rec.flushes]
+        if mods.work is not None:
+            ctx.work = [
+                mods.work.reckon(config, rows, [tuple(rec.queries[i][:2]) for i in done]) for _, _, done in rec.flushes
+            ]
     metrics = {}
     for m in metrics_of(bench, workload, trace):
         value = load_reader(m["name"]).read(ctx)
@@ -236,13 +254,13 @@ def run_cell(
 
     # the program's state goes before the reference runs
     system.close()
-    del system, client, bitmaps
+    del system, client, data
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    reference = reference_mod.Reference(config, seed, [p[1] for p in traffic.preds], device=device)
-    checks, failed = judge(rec, traffic, reference, num_words(config["users"]))
+    reference = mods.reference.Reference(config, seed, traffic, device=device)
+    checks, failed = judge(rec, reference, num_words(rows))
     reference.close()
     log(f"reference and check: {time.perf_counter() - t_ref:.3f} s")
     result["failed"] = failed

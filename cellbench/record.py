@@ -5,7 +5,7 @@ query with the time it was due and the time its answer returned to the
 caller, keeps every non-MASK answer and every MASK's length for the check
 after the window, and a copy of one MASK's words in ``MASK_EVERY`` (from
 an offset drawn from the seed): a MASK is a whole bitmap, too large to
-keep each one of a window.
+keep each one of a window.  Each query carries its own aggregate.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ MASK_EVERY = 8
 class Recording:
     def __init__(self, mask_offset: int = 0):
         self.mask_offset = mask_offset % MASK_EVERY
-        # per query: [pred, t_due, t_submit, t_done]
+        # per query: [pred, agg, t_due, t_submit, t_done]
         self.queries: list[list] = []
         self.values: dict[int, object] = {}  # query -> non-MASK answer
         self.masks: dict[int, np.ndarray] = {}  # query -> kept MASK words
@@ -30,15 +30,14 @@ class Recording:
 
     @property
     def answered(self) -> int:
-        return sum(1 for q in self.queries if q[3] is not None)
+        return sum(1 for q in self.queries if q[4] is not None)
 
 
 class Client:
-    """Submits plain predicate specs to a system and records answers."""
+    """Submits plain query specs to a system and records answers."""
 
-    def __init__(self, system, traffic, rec: Recording):
+    def __init__(self, system, rec: Recording):
         self.system = system
-        self.traffic = traffic
         self.rec = rec
         self._tickets: dict[int, int] = {}  # ticket -> query index
 
@@ -46,11 +45,11 @@ class Client:
     def outstanding(self) -> int:
         return len(self._tickets)
 
-    def submit(self, pred, t_due: float) -> None:
+    def submit(self, pred, agg, t_due: float) -> None:
         t = time.perf_counter()
-        ticket = self.system.submit(pred)
+        ticket = self.system.submit(pred, agg)
         self._tickets[ticket] = len(self.rec.queries)
-        self.rec.queries.append([pred, t_due, t, None])
+        self.rec.queries.append([pred, agg, t_due, t, None])
 
     def flush(self) -> int:
         """One flush of the system; returns the answers it brought."""
@@ -61,9 +60,10 @@ class Client:
         done = []
         for ticket, value in results.items():
             i = self._tickets.pop(ticket)
-            rec.queries[i][3] = t1
+            query = rec.queries[i]
+            query[4] = t1
             done.append(i)
-            if self.traffic.agg[0] == "mask":
+            if query[1][0] == "mask":
                 words = value.words
                 rec.mask_lengths[i] = int(np.shape(words)[-1])
                 if rec.masks_seen % MASK_EVERY == rec.mask_offset:

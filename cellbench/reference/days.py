@@ -54,4 +54,6 @@ class DaysReference:
         self._masks.clear()
 
 
-Reference = DaysReference
+def Reference(config: dict, seed: int, traffic, device="cpu") -> DaysReference:
+    """The reference for a run's traffic: the windows it asks."""
+    return DaysReference(config, seed, [p[1] for p in traffic.preds], device=device)

@@ -8,8 +8,8 @@ per day.  So the adapter fills a ``BitmapStore`` with the pages that
 at a small size), then ``BitmapStore.program`` ESP-programs them into a
 ``FlashDevice``, placing them for the traffic's queries (the paper's
 §6.3 placement), and a ``BatchScheduler`` serves the queries.  The
-traffic's plain specs become ``repro_torch.query`` objects here, once per
-distinct predicate.
+traffic's plain specs, a predicate and its query's own aggregate, become
+``repro_torch.query`` objects here, once per distinct pair.
 """
 
 from __future__ import annotations
@@ -47,13 +47,12 @@ class System:
     """The program under test, built from a configuration and the bitmaps."""
 
     def __init__(self, config: dict, bitmaps: np.ndarray, traffic, device, telemetry_enabled: bool):
-        self.traffic = traffic
         self.days = int(config["days"])
         self.telemetry = q.Telemetry(enabled=telemetry_enabled, trace_capacity=1 << 20)
         store = build_store(bitmaps, int(config["users"]))
         dev = q.FlashDevice(num_planes=config["planes"], device=device)
         self._queries: dict[tuple, q.Query] = {}
-        store.program(dev, warmup=[self.query(p) for p in traffic.preds])
+        store.program(dev, warmup=[self.query(p, a) for p, a in traffic.queries()])
         self.sched = q.BatchScheduler(
             dev,
             store,
@@ -62,18 +61,18 @@ class System:
             telemetry=self.telemetry,
         )
 
-    def query(self, pred) -> q.Query:
-        found = self._queries.get(pred)
+    def query(self, pred, agg) -> q.Query:
+        found = self._queries.get((pred, agg))
         if found is None:
             if pred[0] != "days":
                 raise ValueError(f"unknown predicate {pred!r}")
             last = [q.Eq(day_column(t), 1) for t in range(self.days - int(pred[1]), self.days)]
-            agg = {"count": q.Count, "mask": q.Mask}[self.traffic.agg[0]]()
-            found = self._queries[pred] = q.Query(q.And(last), agg=agg)
+            spec = {"count": q.Count, "mask": q.Mask}[agg[0]]()
+            found = self._queries[pred, agg] = q.Query(q.And(last), agg=spec)
         return found
 
-    def submit(self, pred) -> int:
-        return self.sched.submit(self.query(pred))
+    def submit(self, pred, agg) -> int:
+        return self.sched.submit(self.query(pred, agg))
 
     def flush(self) -> dict:
         return {t: r.value for t, r in self.sched.flush().items()}

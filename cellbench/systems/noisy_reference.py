@@ -15,38 +15,37 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from cellbench.reference.days import DaysReference
+from cellbench.reference.days import Reference
 from cellbench.traffic.generator import rng_for
 
 
 class System:
     def __init__(self, config: dict, bitmaps: np.ndarray, traffic, device, telemetry_enabled: bool):
-        self.traffic = traffic
-        self.ref = DaysReference(config, traffic.seed, [p[1] for p in traffic.preds], device=device)
+        self.ref = Reference(config, traffic.seed, traffic, device=device)
         self.users = int(config["users"])
         self.rber = float(config["control"]["rber"])
         self.rng = rng_for(traffic.seed, 5)
-        self._pending: list[tuple[int, tuple]] = []
+        self._pending: list[tuple[int, tuple, tuple]] = []
         self._next = 0
 
-    def submit(self, pred) -> int:
+    def submit(self, pred, agg) -> int:
         ticket = self._next
         self._next += 1
-        self._pending.append((ticket, pred))
+        self._pending.append((ticket, pred, agg))
         return ticket
 
-    def _noisy(self, pred):
-        if self.traffic.agg[0] == "mask":
+    def _noisy(self, pred, agg):
+        if agg[0] == "mask":
             words = self.ref.mask_words(pred).copy()
             flips = self.rng.integers(0, self.users, self.rng.binomial(self.users, self.rber))
             np.bitwise_xor.at(words, flips // 32, (np.uint32(1) << (flips % 32).astype(np.uint32)))
             return SimpleNamespace(words=words)
-        exact = self.ref.answer(pred, self.traffic.agg)
+        exact = self.ref.answer(pred, agg)
         return exact - self.rng.binomial(exact, self.rber) + self.rng.binomial(self.users - exact, self.rber)
 
     def flush(self) -> dict:
         batch, self._pending = self._pending, []
-        return {t: self._noisy(p) for t, p in batch}
+        return {t: self._noisy(p, a) for t, p, a in batch}
 
     @property
     def pending(self) -> int:

@@ -127,8 +127,8 @@ def test_a_window_short_of_its_oldest_day_is_caught(plant):
 
     query = flashql.System.query
 
-    def shorter(self, pred):
-        return query(self, ("days", pred[1] - 1))
+    def shorter(self, pred, agg):
+        return query(self, ("days", pred[1] - 1), agg)
 
     plant(flashql.System, "query", shorter)
     r = run("bmi.count")

@@ -4,6 +4,7 @@ file the benchmark names loads by name."""
 import json
 
 import numpy as np
+import pytest
 from _setup import ROOT
 
 from cellbench.harness import find_cell, load_benchmark, load_reader, metrics_of
@@ -78,3 +79,31 @@ def test_benchmark_json_keeps_to_the_contract_shape():
     for cell in BENCH["workloads"]:
         assert cell["chips"] == 1 and len(cell["why"]) <= 200
         assert metrics_of(BENCH, cell["name"], True)
+
+
+@pytest.mark.parametrize("seed", [5, 2**31 + 3, 2**62 + 11])
+def test_the_default_plugins_give_what_the_bmi_functions_give(seed):
+    from cellbench.data import days
+    from cellbench.generators import windows
+    from cellbench.harness import plugins
+    from cellbench.reference.work import flush_work
+    from cellbench.tables import to_host
+    from cellbench.work import days as days_work
+
+    _, entry = find_cell(BENCH, "bmi.count")
+    cfg = {**json.loads((ROOT / entry["file"]).read_text()), "users": 4000}
+    mix = load_mix("bmi-count")
+    mods = plugins(cfg, mix)
+    assert (mods.data, mods.generator, mods.work) == (days, windows, days_work)
+
+    data, rows = mods.data.make(cfg, seed, "cpu")
+    want = to_host(make_days(cfg, seed))
+    assert rows == 4000 and (data.dtype, data.shape) == (want.dtype, want.shape)
+    assert data.tobytes() == want.tobytes()
+
+    traffic, plain = mods.generator.make(mix, seed, cfg), Traffic(mix, seed, 1095)
+    assert traffic.take() == plain.take()
+    assert traffic.queries() == [(p, plain.agg) for p in plain.take()]
+    for agg in (("count",), ("mask",)):
+        members = [(p, agg) for p in plain.take()]
+        assert mods.work.reckon(cfg, rows, members) == flush_work(num_words(4000), members)

@@ -1,1 +1,1 @@
-"""Traffic: the generator, one module per loop kind, and the mix files."""
+"""Traffic: one module per loop kind, the BMI windows' generator, and the mix files."""

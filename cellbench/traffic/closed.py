@@ -21,8 +21,8 @@ def run_batches(client: Client, traffic, until: float | None, flushes: int | Non
     n = 0
     while (until is None or t_end < until) and (flushes is None or n < flushes):
         now = time.perf_counter()
-        for pred in traffic.take():
-            client.submit(pred, now)
+        for pred, agg in traffic.queries():
+            client.submit(pred, agg, now)
         while client.outstanding:
             if not client.flush() and not client.system.pending:
                 break  # unanswered queries stay unanswered: the check counts them

@@ -1,4 +1,6 @@
-"""The one traffic generator: every mix file is read by this code.
+"""The BMI windows' traffic (the ``windows`` generator,
+``generators/windows.py``), and what every generator shares: the seed's
+random streams and the mix files.
 
 A mix (``traffic/<mix>.json``) names its loop, the windows of the paper's
 BMI query ("users active on every one of the last m months", ``months``),
@@ -63,5 +65,9 @@ class Traffic:
         self.agg = freeze(mix["agg"])
 
     def take(self) -> list[tuple]:
-        """One flush's queries: every predicate once, in the seed's order."""
+        """One flush's predicates: every window once, in the seed's order."""
         return list(self.preds)
+
+    def queries(self) -> list[tuple]:
+        """One flush's queries as ``(pred, agg)`` pairs, in the seed's order."""
+        return [(p, self.agg) for p in self.preds]
