@@ -50,6 +50,7 @@ from repro_torch.query.ast import (
     TopK,
     columns_of,
     normalize_agg,
+    pred_columns,
 )
 from repro_torch.query.bitmap import BitmapStore, bsi_pages, eq_pages, fetch_pages
 
@@ -581,10 +582,15 @@ def get_aggregator(agg) -> Aggregator:
 def validate_query(query: Query, columns: Mapping[str, object]) -> Aggregator:
     """Admission-time validation: every predicate column and the
     aggregate's target columns must exist, so a bad query raises at
-    ``submit()`` — never mid-flush.  Returns the query's aggregator."""
-    for col in columns_of(query.where):
-        if col not in columns:
-            raise KeyError(f"unknown column {col!r}")
+    ``submit()`` — never mid-flush.  Returns the query's aggregator.
+
+    The predicate's column set is kept on its tree after the first walk,
+    so checking a repeat query is a subset test against ``columns`` as
+    they are now."""
+    if not columns.keys() >= pred_columns(query.where):
+        for col in columns_of(query.where):  # the first unknown, in tree order
+            if col not in columns:
+                raise KeyError(f"unknown column {col!r}")
     agg = get_aggregator(query.agg)
     agg.validate(columns)
     return agg

@@ -20,15 +20,48 @@ Predicates support ``&``, ``|``, ``~`` like the core expression IR.
 
 Every node is frozen and hashable: the structural identity of a predicate
 (and of its aggregate spec) is its plan-cache key (``repro_torch.query.compile``).
+A composite predicate (and an ``In``) computes its hash and the set of
+columns it reads (:func:`pred_columns`) in one walk on first use and keeps
+both, so a query served again costs O(1) in its leaves to hash and to
+validate.
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
+
+
+def _kept(cls):
+    """Class decorator, over ``@dataclass(frozen=True)``, for the nodes
+    whose hash walks a subtree or a list of values: replace the generated
+    hash, which walks it again on every call, by the one kept after the
+    first walk.  The hash covers the fields that ``==`` compares, as
+    before.  ``Eq`` and ``Range`` hash in O(1) and keep nothing."""
+    cls._hash_fields = tuple(f.name for f in fields(cls) if f.compare)
+    cls.__hash__ = _kept_hash
+    return cls
+
+
+def _kept_hash(node) -> int:
+    d = node._digest
+    return (d if d is not None else _walk(node))[0]
 
 
 class _PredOps:
+    # ``(hash, columns read)``, kept by the nodes that ``_kept`` marks.  An
+    # instance attribute over this class's None, not a field: ``==``,
+    # ``repr``, ``dataclasses.fields`` and ``replace`` see only the
+    # fields.  It is left out of the pickled or copied state, because
+    # string hashes are salted per process: a node unpickled or copied
+    # computes its own.
+    _digest = None
+
+    def __getstate__(self) -> dict:
+        state = dict(self.__dict__)
+        state.pop("_digest", None)
+        return state
+
     def __and__(self, other: "Pred") -> "And":
         return And(_flatten(And, (self, other)))
 
@@ -49,6 +82,7 @@ class Eq(_PredOps):
     value: int
 
 
+@_kept
 @dataclass(frozen=True)
 class In(_PredOps):
     """Rows where ``column`` is any of ``values``."""
@@ -74,6 +108,7 @@ class Range(_PredOps):
             raise ValueError("Range needs at least one bound")
 
 
+@_kept
 @dataclass(frozen=True)
 class And(_PredOps):
     children: tuple["Pred", ...]
@@ -82,6 +117,7 @@ class And(_PredOps):
         object.__setattr__(self, "children", _flatten(And, children))
 
 
+@_kept
 @dataclass(frozen=True)
 class Or(_PredOps):
     children: tuple["Pred", ...]
@@ -90,11 +126,13 @@ class Or(_PredOps):
         object.__setattr__(self, "children", _flatten(Or, children))
 
 
+@_kept
 @dataclass(frozen=True)
 class Not(_PredOps):
     child: "Pred"
 
 
+@_kept
 @dataclass(frozen=True)
 class AtLeast(_PredOps):
     """Fuzzy predicate: rows matching at least ``k`` of the ``children``.
@@ -310,6 +348,48 @@ def columns_of(pred: Pred):
             yield from columns_of(c)
     else:
         raise TypeError(f"not a FlashQL predicate: {pred!r}")
+
+
+def _walk(node) -> tuple[int, frozenset]:
+    """``(hash, columns read)`` of a kept node, computed once, children
+    first; raises ``TypeError`` on a tree that holds something that is
+    not a predicate."""
+    d = node._digest
+    if d is not None:
+        return d
+    if isinstance(node, In):
+        cols = frozenset((node.column,))
+    elif isinstance(node, Not):
+        cols = pred_columns(node.child)
+    else:  # And, Or, AtLeast
+        found: set[str] = set()
+        for c in node.children:
+            if isinstance(c, (Eq, Range)):
+                found.add(c.column)
+            else:
+                found.update(pred_columns(c))
+        cols = frozenset(found)
+    d = (hash(tuple([getattr(node, f) for f in node._hash_fields])), cols)
+    object.__setattr__(node, "_digest", d)
+    return d
+
+
+def pred_columns(pred: Pred) -> frozenset[str]:
+    """The set of column names a predicate reads.  A node that keeps its
+    hash builds the set in the same walk, once, and keeps it."""
+    if isinstance(pred, (Eq, Range)):
+        return frozenset((pred.column,))
+    if isinstance(pred, _PredOps):
+        return _walk(pred)[1]
+    raise TypeError(f"not a FlashQL predicate: {pred!r}")
+
+
+def walked(pred: Pred) -> bool:
+    """Whether hashing ``pred`` or reading its column set is O(1): it
+    keeps both already, or it is a leaf that needs no walk."""
+    if isinstance(pred, (Eq, Range)):
+        return True
+    return getattr(pred, "_digest", None) is not None
 
 
 class Agg(enum.Enum):

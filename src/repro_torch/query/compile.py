@@ -298,12 +298,45 @@ def expr_key(e: Expr) -> tuple:
     return (e.op.value,) + tuple(expr_key(c) for c in e.children)
 
 
+class PlanKey:
+    """A plan-cache key, ``(expr_key, placements, epoch_sig)``, interned.
+
+    Its hash is computed once, and :meth:`QueryCompiler.compile` hands out
+    one object per distinct key, so the exec cache, the CSE cache and the
+    flush-program cache hash and compare a repeat flush's keys in O(1),
+    however large the plans.  A key rebuilt from a pickle computes its
+    hash again (string hashes are salted per process).
+    """
+
+    __slots__ = ("parts", "_hash")
+
+    def __init__(self, parts: tuple) -> None:
+        self.parts = parts
+        self._hash = hash(parts)
+
+    def __hash__(self) -> int:
+        return self._hash
+
+    def __eq__(self, other) -> bool:
+        if self is other:
+            return True
+        if not isinstance(other, PlanKey):
+            return NotImplemented
+        return self._hash == other._hash and self.parts == other.parts
+
+    def __reduce__(self):
+        return (PlanKey, (self.parts,))
+
+    def __repr__(self) -> str:
+        return f"PlanKey{self.parts!r}"
+
+
 @dataclass(frozen=True)
 class CompiledQuery:
     query: Query
     expr: Expr
     plan: CommandPlan
-    key: tuple
+    key: PlanKey
     cache_hit: bool
     # canonicalized predicate (optimizer on) — the structural identity
     # cross-query CSE and materialization key on; None when optimize=False
@@ -365,6 +398,8 @@ class QueryCompiler:
     # schedulers used to keep private exec caches with duplicate pruning
     # logic; centralizing them here keeps one freshness rule
     _execs: dict = field(default_factory=dict, repr=False)
+    # every live PlanKey, by itself: equal keys are one object
+    _keys: dict = field(default_factory=dict, repr=False)
     # attached by the owning scheduler (repro_torch.query.telemetry.Telemetry):
     # plan-compile misses report their Planner time as a histogram + span
     telemetry: object = None
@@ -376,13 +411,13 @@ class QueryCompiler:
         de = self.array.store.region_epochs
         return tuple((r, ce.get(r, 0), de.get(r, 0)) for r in regions)
 
-    def key_fresh(self, key: tuple) -> bool:
+    def key_fresh(self, key: PlanKey) -> bool:
         """Whether a plan-cache key's leaf-region epochs are all current.
 
         Exec/batch caches keyed on plan-cache keys prune through this: a
         stale key can never be produced by ``compile`` again.
         """
-        sig = key[2]
+        sig = key.parts[2]
         return sig == self.epoch_sig(tuple(r for r, _, _ in sig))
 
     def compile(self, query: Query) -> CompiledQuery:
@@ -400,6 +435,7 @@ class QueryCompiler:
             self._execs = {
                 k: v for k, v in self._execs.items() if self.key_fresh(k)
             }
+            self._keys = {k: k for k in self._keys if self.key_fresh(k)}
             self._by_query.clear()
             self._live_versions = versions
         cached = self._by_query.get(query)
@@ -428,7 +464,8 @@ class QueryCompiler:
         regions = tuple(
             sorted({page_region(p.name) for p in pages} - {None})
         )
-        key = (expr_key(expr), placements, self.epoch_sig(regions))
+        key = PlanKey((expr_key(expr), placements, self.epoch_sig(regions)))
+        key = self._keys.setdefault(key, key)
         plan = self._plans.get(key)
         hit = plan is not None
         if hit:
@@ -453,7 +490,7 @@ class QueryCompiler:
                     t0,
                     t1,
                     tid="compile",
-                    args={"key": repr(key[0])},
+                    args={"key": repr(key.parts[0])},
                 )
             self._plans[key] = plan
         cq = CompiledQuery(query, expr, plan, key, hit, canon)

@@ -45,7 +45,7 @@ from repro_torch.query.aggregate import (
     reduce_flush,
     validate_query,
 )
-from repro_torch.query.ast import Count, Mask, Query, normalize_agg
+from repro_torch.query.ast import Count, Mask, Query, normalize_agg, walked
 from repro_torch.query.bitmap import BitmapStore
 from repro_torch.query.compile import QueryCompiler, compile_flush
 from repro_torch.query.device import FlashDevice, age_spill_blocks
@@ -160,17 +160,19 @@ def attribute_result(
         tid=TID_TICKETS,
         args={"ticket": ticket, "sensings": sensings},
     )
-    tele.slow(
-        {
-            "ticket": ticket,
-            "predicate": repr(query.where),
-            "agg": repr(query.agg),
-            "latency_s": latency,
-            "attribution": attr,
-        },
-        latency,
-        sensings,
-    )
+    # the entry's repr walks the whole predicate: only for a logged query
+    if tele.is_slow(latency, sensings):
+        tele.slow(
+            {
+                "ticket": ticket,
+                "predicate": repr(query.where),
+                "agg": repr(query.agg),
+                "latency_s": latency,
+                "attribution": attr,
+            },
+            latency,
+            sensings,
+        )
 
 
 def project_traffic(
@@ -346,6 +348,9 @@ class BatchScheduler:
     _cse_cache: dict = field(default_factory=dict, repr=False)
     # queued (validated) append batches awaiting coalesced programming
     _append_buf: list = field(default_factory=list, repr=False)
+    # predicate trees walked (hashed and their columns collected) at
+    # admission since the previous flush; a repeat query walks none
+    _walks: int = field(default=0, repr=False)
 
     def __post_init__(self):
         if self.telemetry is None:
@@ -613,7 +618,9 @@ class BatchScheduler:
         happens here, so a bad query raises immediately instead of
         poisoning a later flush.
         """
+        fresh = not walked(query.where)
         validate_query(query, self.store.columns)
+        self._walks += fresh
         ticket = self._next_ticket
         self._next_ticket += 1
         self._pending.append((ticket, query, time.perf_counter()))
@@ -637,6 +644,10 @@ class BatchScheduler:
             self._pending[self.max_batch :],
         )
         tele.gauge("pending_after_pop", len(self._pending))
+        # an emulation detail like sense_commands_hoisted: a gauge, so the
+        # counters stay the reference's
+        tele.gauge("predicate_walks", self._walks)
+        self._walks = 0
         t0 = time.perf_counter()
         compiled = [self.compiler.compile(q) for _, q, _ in batch]
         execs = [self.compiler.exec_for(cq) for cq in compiled]

@@ -185,16 +185,16 @@ class Telemetry:
         """Label a trace row (emitted as thread_name metadata on export)."""
         self.tid_names[tid] = name
 
+    def is_slow(self, latency_s: float, sensings: int) -> bool:
+        """Whether a query crosses the latency OR sensing threshold."""
+        return self.enabled and (
+            (self.slow_latency_s is not None and latency_s >= self.slow_latency_s)
+            or (self.slow_sensings is not None and sensings >= self.slow_sensings)
+        )
+
     def slow(self, entry: dict, latency_s: float, sensings: int) -> None:
         """Log ``entry`` if it crosses the latency OR sensing threshold."""
-        if not self.enabled:
-            return
-        if (
-            self.slow_latency_s is not None
-            and latency_s >= self.slow_latency_s
-        ) or (
-            self.slow_sensings is not None and sensings >= self.slow_sensings
-        ):
+        if self.is_slow(latency_s, sensings):
             self.slow_queries.append(entry)
 
     # -- reporting -----------------------------------------------------------

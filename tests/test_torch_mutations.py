@@ -394,9 +394,14 @@ def _compact_reclaims_capacity(S):
         {k: stats[k] for k in keys},
         _value(r),
         {k: v for k, v in snap["counters"].items() if not k.endswith("_s")},
-        # the port's own gauge (command sensings its fused flush hoists)
-        # has no counterpart in the reference
-        {k: v for k, v in snap["gauges"].items() if k != "sense_commands_hoisted"},
+        # the port's own gauges (command sensings its fused flush hoists,
+        # predicate trees walked at admission) have no counterpart in the
+        # reference
+        {
+            k: v
+            for k, v in snap["gauges"].items()
+            if k not in ("sense_commands_hoisted", "predicate_walks")
+        },
         sched.projection(),
         _state(sched),
     )
