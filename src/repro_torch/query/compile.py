@@ -647,11 +647,12 @@ class FlushProgram:
     reduce_parse: tuple  # per reduce group: (member tuple, payload leaves)
     extra_counts: tuple  # per member: extra planes sensed (traffic accounting)
     cse_idxs: tuple = ()  # per shared plan: tuple of encoded (1, blocks, wls)
-    # the commands sensed once for the whole flush (hoist_flush): per
-    # launch (H, blocks, wls) slots, per fold launch (P, 1, n) stack rows
+    # the folds' commands, each sensed once for the whole flush
+    # (hoist_flush): per launch (H, blocks, wls) slots, per fold launch
+    # (P, 1, n) stack rows
     hoist_idxs: tuple = ()
     fold_idxs: tuple = ()
-    sensings_hoisted: int = 0  # command sensings the hoist saves a run
+    sensings_hoisted: int = 0  # command sensings the folds save a run
 
     def run(self, data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Launch the program (asynchronous); returns the device payload."""
@@ -711,9 +712,11 @@ def compile_flush(
     sensed, and the member gather points duplicates at the
     representative's row.  ``shared_execs`` are the flush's cross-query
     shared subexpression plans (:func:`repro_torch.query.optimize.cse_flush`),
-    sensed once before the member groups.  A command that several plans
-    of the flush sense is sensed once too, where that saves bytes and
-    AND chains fold over it (:func:`repro_torch.query.device.hoist_flush`).
+    sensed once before the member groups.  Batch groups of AND chains
+    over commands that several plans sense fold: each command of those
+    chains is sensed once and each chain is one gather over them
+    (:func:`repro_torch.query.device.hoist_flush`); every other group
+    senses its own commands.
     """
     assert all(e is not None for e in execs), "fused flush needs lowered plans"
     n = len(execs)
@@ -738,7 +741,7 @@ def compile_flush(
         folded = (False,) * len(groups)
         order = [i for _sig, members, _stacked in groups for i in members]
     else:
-        groups, folded, order = hoist.groups, hoist.folded, hoist.order
+        folded, order = hoist.folded, hoist.order
     sense = [(signature, len(members)) for signature, members, _ in groups]
     group_idxs = [
         tuple(

@@ -32,9 +32,9 @@ batch path never does).
 :func:`make_flush_runner` runs a WHOLE flush — every signature group plus
 every aggregate reduce — and returns a single flat 32-bit payload (see
 :func:`repro_torch.query.compile.compile_flush`).  Where the flush's
-plans repeat commands and AND chains fold over them, :func:`hoist_flush`
-has each sensed once for all of them; the modelled chip still senses every command of every plan, so the
-counters and the wear do not change.
+plans' AND chains fold over repeated commands, :func:`hoist_flush` has
+each command of those chains sensed once; the modelled chip still senses
+every command of every plan, so the counters and the wear do not change.
 """
 
 from __future__ import annotations
@@ -85,9 +85,6 @@ class _Step:
     # the flush-level shared-value stack (cross-query CSE): the row is a
     # latch result another plan in the same flush already sensed
     shared: tuple[tuple[int, int, int], ...] = ()
-    # "mws": some batch element reads a command the fused flush sensed
-    # ahead (see hoist_flush); its whole gather row names that shared row
-    hoisted: bool = False
     ordinal: int = 0  # "spill": index into the plan's scratch values
 
 
@@ -269,7 +266,7 @@ def plan_step_fn(signature: tuple[_Step, ...]):
             if st.kind == "mws":
                 idx = next(it)
                 ext = torch.stack(scratch, dim=1) if st.subs else None
-                shr = shared if st.shared or st.hoisted else None
+                shr = shared if st.shared else None
                 if st.k:
                     per_block = mws_gather(
                         data, idx, BitOp.AND, outer_or=False, ext=ext, shr=shr
@@ -357,23 +354,22 @@ def _pad_wordlines(idx: np.ndarray, n: int) -> np.ndarray:
 
 @dataclass(frozen=True)
 class FlushHoist:
-    """The commands a fused flush senses once, ahead of its plans.
+    """The commands a fused flush senses once, for the AND chains that fold.
 
     ``sense`` holds one ``(H, blocks, wordlines)`` slot array per launch
-    (commands of equal block count, wordlines padded by repetition); their
-    outputs are the hoisted stack, which follows the flush's CSE values in
-    the shared rows.  ``folds`` holds ``(invert, (P, 1, n))`` per fold
-    launch: plans that are pure AND chains run as one gather over their
-    hoisted rows.  ``groups`` are the batch groups with every other read
-    of a hoisted command rewritten to name its shared row; ``folded``
-    marks the groups whose plans run in a fold, ``order`` the plan order
-    of the concatenated outputs (folds first), and ``saved`` the command
-    sensings saved.
+    (commands of equal block count, wordlines padded by repetition): each
+    command of the groups that fold, once.  Their outputs are the hoisted
+    stack, which follows the flush's CSE values in the shared rows.
+    ``folds`` holds ``(invert, (P, 1, n))`` per fold launch: each plan of a
+    folding group is one row, a gather over its hoisted rows.  ``folded``
+    marks the batch groups that fold; the others run as
+    :func:`group_execs` built them.  ``order`` is the plan order of the
+    concatenated outputs (the folds', then the other groups' members in
+    group order), and ``saved`` the command sensings the folds save.
     """
 
     sense: tuple[np.ndarray, ...]
     folds: tuple[tuple[bool, np.ndarray], ...]
-    groups: list
     folded: tuple[bool, ...]
     order: list[int]
     saved: int
@@ -391,21 +387,21 @@ class FlushHoist:
 def hoist_flush(
     execs: list[ExecPlan], groups: list[tuple], n_shared: int
 ) -> FlushHoist | None:
-    """Plan the fused flush's sensing of each distinct command once.
+    """Plan the fused flush's folds and the commands they sense once.
 
     A command is a plain MWS step's gather row (``_hoistable``); two are
     the same when their slot arrays are equal.  A command read ``occ``
-    times over ``rows`` slots is worth hoisting when that saves bytes: it
-    is then sensed once (``rows`` reads, one write) and each read takes
-    one row, so ``(occ - 1) * rows > occ + 1``.  A batch group of pure AND
-    chains (:func:`_pure_and_chain`) in which every plan names such a
-    command folds: its plans' other commands are hoisted too (sensed once
-    either way) and each plan becomes one row of a fold launch, which
-    drops the chain's per-step launches and ``s & raw`` passes.  The hoist
-    itself adds launches, so a flush in which no group folds returns None
-    and runs exactly as built by :func:`group_execs`, repeats or not.
-    ``execs`` are the groups' (unpadded) plans and ``n_shared`` the
-    flush's CSE value count.
+    times over ``rows`` slots repeats when sensing it once would save
+    bytes (``rows`` reads, one write, then one row a read):
+    ``(occ - 1) * rows > occ + 1``.  A batch group of pure AND chains
+    (:func:`_pure_and_chain`) in which every plan names a repeated command
+    folds: every command of its plans is sensed once, and each plan
+    becomes one row of a fold launch, which drops the chain's per-step
+    launches and ``s & raw`` passes.  Groups that do not fold run as built
+    by :func:`group_execs` and sense their commands themselves, repeated
+    or not; a flush in which no group folds returns None.  ``execs`` are
+    the groups' (unpadded) plans and ``n_shared`` the flush's CSE value
+    count.
     """
     where: dict[tuple, list[tuple[int, int, int]]] = {}
     for g, (signature, members, _stacked) in enumerate(groups):
@@ -439,12 +435,13 @@ def hoist_flush(
     )
     if not any(folded):
         return None
-    hoisted = set(repeats)
-    for g, (_sig, members, _stacked) in enumerate(groups):
-        if folded[g]:
-            hoisted.update(
-                command(i, s) for i in members for s in range(len(execs[i].idxs))
-            )
+    hoisted = {
+        command(i, s)
+        for (_sig, members, _stacked), f in zip(groups, folded)
+        if f
+        for i in members
+        for s in range(len(execs[i].idxs))
+    }
     # the stack: commands of one block count share a launch
     by_blocks: dict[int, list[tuple]] = {}
     for c in sorted(hoisted, key=lambda c: where[c][0]):
@@ -463,36 +460,13 @@ def hoist_flush(
 
     uses = 0
     folds: dict[bool, list[tuple[int, list[int]]]] = {}  # (plan, rows)
-    out_groups = []
-    rest: list[int] = []
-    for g, (signature, members, stacked) in enumerate(groups):
-        if folded[g]:
+    for (signature, members, _stacked), f in zip(groups, folded):
+        if f:
             inv = signature[-1].invert
             for i in members:
                 rows = [row[command(i, s)] for s in range(len(execs[i].idxs))]
                 folds.setdefault(inv, []).append((i, rows))
                 uses += len(rows)
-            out_groups.append((signature, members, stacked))
-            continue
-        stacked = list(stacked)
-        steps = list(signature)
-        mws_pos = [p for p, st in enumerate(steps) if st.kind == "mws"]
-        for s, p in enumerate(mws_pos):
-            if not _hoistable(steps[p]):
-                continue
-            for j, i in enumerate(members):
-                c = command(i, s)
-                if c in repeats:
-                    if not steps[p].hoisted:
-                        stacked[s] = stacked[s].copy()
-                        steps[p] = replace(steps[p], hoisted=True)
-                    # the kernel decodes -1 - r past the CSE values: the
-                    # whole row names the hoisted command (AND/OR ignore
-                    # repeats, so the padding does too)
-                    stacked[s][j] = -1 - row[c]
-                    uses += 1
-        out_groups.append((tuple(steps), members, stacked))
-        rest.extend(members)
     fold_arrays = []
     order: list[int] = []
     for inv, plans in folds.items():
@@ -500,12 +474,17 @@ def hoist_flush(
         padded = [_pad_wordlines(np.asarray(rows, np.int32), n) for _i, rows in plans]
         fold_arrays.append((inv, np.stack(padded)[:, None, :]))
         order.extend(i for i, _rows in plans)
+    order.extend(
+        i
+        for (_sig, members, _stacked), f in zip(groups, folded)
+        if not f
+        for i in members
+    )
     return FlushHoist(
         sense=tuple(sense),
         folds=tuple(fold_arrays),
-        groups=out_groups,
         folded=folded,
-        order=order + rest,
+        order=order,
         saved=uses - len(hoisted),
     )
 

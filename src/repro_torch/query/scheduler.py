@@ -644,9 +644,7 @@ class BatchScheduler:
             self._pending[self.max_batch :],
         )
         tele.gauge("pending_after_pop", len(self._pending))
-        # an emulation detail like sense_commands_hoisted: a gauge, so the
-        # counters stay the reference's
-        tele.gauge("predicate_walks", self._walks)
+        tele.gauge("predicate_walks", self._walks)  # one of PORT_GAUGES
         self._walks = 0
         t0 = time.perf_counter()
         compiled = [self.compiler.compile(q) for _, q, _ in batch]
@@ -724,8 +722,7 @@ class BatchScheduler:
                 for b in cse.shared_blocks:
                     self.device.pec[b] = self.device.pec.get(b, 0) + 1
             tele.count("fused_dispatches")
-            # an emulation detail, not modelled traffic: a gauge, so the
-            # counters stay the reference's
+            # an emulation detail, not modelled traffic (PORT_GAUGES)
             tele.gauge("sense_commands_hoisted", program.sensings_hoisted)
             self.device.last_signature_groups = program.n_sense_groups
             t_disp = time.perf_counter()

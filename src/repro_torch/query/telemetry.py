@@ -55,6 +55,12 @@ TID_FLUSH = "flush"
 TID_MERGE = "merge"
 TID_TICKETS = "tickets"
 
+# gauges only the port's BatchScheduler writes: emulation details with no
+# counterpart in the reference (command sensings its fused flush saves,
+# predicate trees walked at admission), gauges so that the counters stay
+# the reference's
+PORT_GAUGES = ("sense_commands_hoisted", "predicate_walks")
+
 
 def percentile(samples, q: float) -> float | None:
     """The ``q``-th percentile (nearest-rank) of a sample set, or ``None``

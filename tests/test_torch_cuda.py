@@ -13,12 +13,15 @@ import pytest
 import torch
 
 import repro_torch.query as T
+from _bmi import bmi_store, day_bits, day_column
 from repro_torch.core.bitops import to_uint32
 from repro_torch.core.engine import FlashArray
 from repro_torch.core.expr import Page, and_, or_
 from repro_torch.kernels.mws import mws_gather
 from repro_torch.kernels.popcount import popcount
 from repro_torch.kernels.threshold import threshold_reduce
+from repro_torch.query import compile as compile_mod
+from repro_torch.query.device import encode_idx
 from repro_torch.query.state import export_state, load_reference_state
 
 ROWS = 70_001  # ragged: the last word is partly padding
@@ -118,28 +121,30 @@ def test_eager_engine_on_the_card(cuda):
 
 
 @pytest.mark.cuda
-def test_hoisted_bmi_flush_on_the_card_matches_the_cpu(cuda):
+def test_hoisted_bmi_flush_on_the_card_matches_the_cpu(cuda, monkeypatch):
     """The paper's five BMI windows in one flush: the card senses each of
     their 25 distinct commands once (one streaming launch) and folds the
     five AND chains (one staged launch), and gives the CPU's counts and
     MASK words bit for bit; so does a flush in which plans that do not
-    fold read hoisted commands, inverted and over two blocks."""
-    import sys
-    from pathlib import Path
+    fold read a command the folds hoist, inverted and over two blocks, and
+    sense it themselves."""
+    built = []
+    group_execs = compile_mod.group_execs
 
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from cellbench.systems.flashql import build_store, day_column
-    from cellbench.tables import make_days
+    def recorded(*args, **kwargs):
+        built.append(group_execs(*args, **kwargs))
+        return built[-1]
 
+    monkeypatch.setattr(compile_mod, "group_execs", recorded)
     users, days = (1 << 17) + 5, 1095
-    words = make_days({"users": users, "days": days}, 9).numpy().view(np.uint32)
+    bits = day_bits(users, days, 9)
     windows = [T.And([T.Eq(day_column(t), 1) for t in range(days - w, days)])
                for w in (30, 182, 365, 730, 1095)]
     either = windows[0] | T.And([T.Eq(day_column(t), 1) for t in range(30)])
     mixed = [T.Not(either), either, either & T.Not(T.Eq(day_column(40), 1))]
     got = []
     for device in ("cpu", cuda):
-        store = build_store(words, users)
+        store = bmi_store(bits)
         dev = T.FlashDevice(num_planes=4, device=device)
         store.program(dev, warmup=[T.Query(p) for p in windows])
         sched = T.BatchScheduler(dev, store, optimize=True)
@@ -151,12 +156,16 @@ def test_hoisted_bmi_flush_on_the_card_matches_the_cpu(cuda):
             assert {k: v - before[k] for k, v in mws_gather.variant_launches.items()} == {
                 "streaming": 2, "staged": 2}
         assert sched.telemetry.gauges["sense_commands_hoisted"] == 32
-        # beside the folds, plans that read hoisted rows as shared rows: a
-        # two-block command, plain and inverted
+        # beside the folds, plans that do not fold run as group_execs built
+        # them: a two-block command the folds hoist, plain and inverted
         out += [r.count for r in sched.serve([T.Query(p) for p in mixed] + [T.Query(p) for p in windows])]
         (program,) = [p for k, p in sched._flush_programs.items() if len(k[0]) == 8]
-        assert any(st.hoisted and st.inverse
-                   for (sig, _n), f in zip(program.key[0], program.key[4][2]) if not f for st in sig)
+        unfolded = [(sig, stacked)
+                    for (sig, _m, stacked), f in zip(built[-1], program.key[4][2]) if not f]
+        assert any(st.inverse and st.shape[0] == 2 for sig, _ in unfolded for st in sig)
+        for idxs, (sig, stacked) in zip(program.group_idxs, unfolded, strict=True):
+            for x, want in zip(idxs, encode_idx(sig, stacked), strict=True):
+                np.testing.assert_array_equal(x.cpu().numpy(), want)
         stats = {k: v for k, v in sched.stats().items() if k not in _TIMED}
         got.append((out, stats, dict(dev.pec)))
     assert got[0] == got[1]

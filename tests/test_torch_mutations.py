@@ -35,6 +35,7 @@ from repro_torch.query.compile import _lower as t_raw_lower
 from repro_torch.query.oracle import np_select
 from repro_torch.query.scheduler import plan_traffic as t_plan_traffic
 from repro_torch.query.state import export_state, load_reference_state
+from repro_torch.query.telemetry import PORT_GAUGES
 
 # host-clock fields; everything else in stats() is a counter
 _TIMED = ("queries_per_sec", "mean_latency_s")
@@ -394,14 +395,8 @@ def _compact_reclaims_capacity(S):
         {k: stats[k] for k in keys},
         _value(r),
         {k: v for k, v in snap["counters"].items() if not k.endswith("_s")},
-        # the port's own gauges (command sensings its fused flush hoists,
-        # predicate trees walked at admission) have no counterpart in the
-        # reference
-        {
-            k: v
-            for k, v in snap["gauges"].items()
-            if k not in ("sense_commands_hoisted", "predicate_walks")
-        },
+        # the port's own gauges have no counterpart in the reference
+        {k: v for k, v in snap["gauges"].items() if k not in PORT_GAUGES},
         sched.projection(),
         _state(sched),
     )

@@ -23,15 +23,13 @@ import numpy as np
 import pytest
 
 import repro_torch.query as T
+from _bmi import bmi_store, day_bits, day_column, window as _window
 from repro_torch.query import ast as port_ast
 from repro_torch.query.ast import pred_columns, walked
 from repro_torch.query.compile import PlanKey
 from repro_torch.query.oracle import np_select
 
 ROOT = Path(__file__).resolve().parents[1]
-if str(ROOT) not in sys.path:
-    sys.path.insert(0, str(ROOT))
-
 USERS = 256
 DAYS = 1095
 WINDOWS = (30, 182, 365, 730, 1095)
@@ -232,21 +230,11 @@ def test_admission_checks_every_column_against_the_store_as_it_is_now():
 # -- the gauge on the BMI windows ------------------------------------------------
 
 
-def _window(first: int, last: int):
-    from cellbench.systems.flashql import day_column
-
-    return T.Query(T.And([T.Eq(day_column(t), 1) for t in range(first, last)]))
-
-
 @pytest.fixture(scope="module")
 def bmi():
     """The BMI store at a small size, placed for the five windows."""
-    from cellbench.systems.flashql import build_store, day_column
-    from cellbench.tables import make_days
-
-    words = make_days({"users": USERS, "days": DAYS}, 11).numpy().view(np.uint32)
-    bits = np.unpackbits(words.view(np.uint8), axis=1, bitorder="little")[:, :USERS]
-    store = build_store(words, USERS)
+    bits = day_bits(USERS, DAYS, 11)
+    store = bmi_store(bits)
     dev = T.FlashDevice(num_planes=4, device="cpu")
     store.program(dev, warmup=[_window(DAYS - w, DAYS) for w in WINDOWS])
     table = {day_column(t): bits[t] for t in range(DAYS)}
